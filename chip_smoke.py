@@ -6,18 +6,25 @@
 Phases, each of which raises on failure:
 
 1. describe the card (name and power limit from nvidia-smi);
-2. build the kernels: K1 (CUDA C++, nvcc) and K2 (Triton JIT);
+2. build the kernels: K1 (CUDA C++, nvcc), K2 and K3 (Triton JIT);
 3. hold K1 against its plain PyTorch version on the card, in float32
    and bfloat16, over every fusion the main path uses;
 4. hold K2 against its plain version, on a stack with exact zeros;
-5. run the main path at full width -- the 5-member UNet3D ensemble
-   (2 classes, initial filter size 8) scoring batches of 32 64^3 volumes
-   through ``make_scorer`` -- count each kernel's launches in that run,
-   time it, and hold a 2-volume float32 run against the plain path
-   (per-member UNet3D modules, plain statistics) on the card;
-6. time each kernel at its main-path shape beside its bound, its plain
-   version and a library yardstick, and break one batch down by device
-   kernel with torch.profiler.
+5. hold K3 against its plain version in both bit modes (the bits
+   exactly, the sums within tolerance, sigma = 0 exactly softmax);
+6. run the deterministic path at full width -- the 5-member UNet3D
+   ensemble (2 classes, initial filter size 8) scoring batches of 32
+   64^3 volumes through ``make_scorer`` -- count each kernel's launches
+   in that run, time it, and hold a 2-volume float32 run against the
+   plain path (per-member UNet3D modules, plain statistics) on the card;
+7. the same for the aleatoric path: 5 aleatoric members, 10 logit
+   samples each, through ``make_aleatoric_scorer`` (K1 + K3);
+8. the ``score`` CLI over 64 LIDC-style volumes for a deterministic and
+   an aleatoric set of 5 reference-format checkpoints;
+9. time each kernel at its path's shape beside its bound, its plain
+   version and a library yardstick (K3: the stock-torch sampling loop),
+   and break one batch of each path down by device kernel with
+   torch.profiler.
 
 Prints a ``{"kernels": [...]}`` JSON line and ends with
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -25,11 +32,14 @@ without a CUDA device or outside the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,6 +47,14 @@ import numpy as np
 N_MEMBERS, PATCH, CLASSES, FILTERS = 5, 64, 2, 8
 BATCH, N_BATCHES, SEED = 32, 3, 0
 AGG_PATCH, THRESHOLD = 10, 0.3
+N_ALEATORIC = 10          # logit samples per member (the reference's default)
+ALEATORIC_BATCHES = 2
+CLI_VOLUMES = 64
+# the LIDC datamodule of configs/datamodule/lidc_idri_config.yaml
+LIDC_DATAMODULE = {"dataset_name": "LIDC-IDRI", "shift_feature": "texture",
+                   "num_raters": 4, "data_num_folds": 5, "data_fold_id": 0,
+                   "batch_size": 8, "patch_size": PATCH, "patch_overlap": 1,
+                   "seed": 123}
 
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and
 # float32 CUDA-core FLOP/s
@@ -50,6 +68,36 @@ OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def phase(name: str, card: str):
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s; card {card}")
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from values_tpu_torch.ops.kernels.conv3d import conv3d_fused
+    from values_tpu_torch.ops.kernels.entropy import fused_entropy
+    from values_tpu_torch.ops.kernels.sampling import sampled_softmax_stats
+    for wrapper in (conv3d_fused, fused_entropy, sampled_softmax_stats):
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    from values_tpu_torch.ops.kernels.conv3d import conv3d_fused
+    from values_tpu_torch.ops.kernels.entropy import fused_entropy
+    from values_tpu_torch.ops.kernels.sampling import sampled_softmax_stats
+    return {"conv3d_fused": conv3d_fused.launches,
+            "fused_entropy": fused_entropy.launches,
+            "sampled_softmax_stats": sampled_softmax_stats.launches}
+
+
+def expect_launches(launches: dict, want: dict, what: str) -> None:
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -221,17 +269,82 @@ def check_k2():
     return worst
 
 
+# -- K3 against its plain version ---------------------------------------------
+
+def k3_head(gen, n, m, c):
+    """An (N, M, 2C) float32 head and its (mu, sigma) views, as the
+    aleatoric scorer slices them: mu = head[..., :C] ~ 2 N(0, 1), and
+    sigma = exp(s / 2) of a unit-scale log-variance s ~ N(0, 1), written
+    back into head[..., C:]."""
+    import torch
+    head = torch.randn((n, m, 2 * c), generator=gen, device="cuda")
+    head[..., :c] *= 2
+    head[..., c:] = torch.exp(head[..., c:] / 2)
+    return head[..., :c], head[..., c:]
+
+
+def check_k3():
+    """Both bit modes at M=5, C=2, n=3: the bits exactly, then the sums
+    and the sigma = 0 case. Tolerances: sums atol 1e-4, rtol 1e-5 (the
+    kernel's float32 exp, log, sqrt and divisions and its FMAs differ
+    from PyTorch's by ulps; each sum adds M*n = 15 terms of magnitude at
+    most 1, or log C); sigma = 0: atol 1e-5 against n * sum_m
+    softmax(mu). Returns the worst sum error."""
+    import torch
+    from values_tpu_torch.ops.kernels import sampling
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    m, c, n_s, seed = N_MEMBERS, CLASSES, 3, 2 ** 33 + 12345
+    # (bits, N, spatial, counter_rows): ragged N for the 256-voxel blocks
+    cases = (("philox", 100_003, None, None),
+             ("counter", 5 * 8 * 7 * 16, (8, 7, 16), 4))
+    worst = 0.0
+    for bits, n, spatial, rows in cases:
+        kw = dict(n_samples=n_s, bits=bits, spatial=spatial,
+                  counter_rows=rows)
+        got_bits = sampling.sample_bits(n, m, c, seed, device="cuda", **kw)
+        want_bits = sampling.sample_bits_reference(n, m, c, seed,
+                                                   device="cuda", **kw)
+        if not torch.equal(got_bits, want_bits):
+            bad = int((got_bits != want_bits).sum())
+            raise AssertionError(f"K3 {bits} bits: {bad} of "
+                                 f"{got_bits.numel()} words differ")
+        mu, sigma = k3_head(gen, n, m, c)
+        got = sampling.sampled_softmax_stats(mu, sigma, seed, **kw)
+        want = sampling.sampled_softmax_stats_reference(mu, sigma, seed,
+                                                        **kw)
+        errs = []
+        for name, g, w in zip(("sum_p", "sum_ent"), got, want):
+            err = (g - w).abs()
+            errs.append(float(err.max()))
+            if bool((err > 1e-4 + 1e-5 * w.abs()).any()):
+                raise AssertionError(f"K3 {bits} {name}: max_abs_err "
+                                     f"{errs[-1]:.3e}")
+        worst = max(worst, *errs)
+        zero_p, _ = sampling.sampled_softmax_stats(
+            mu, torch.zeros_like(sigma), seed, **kw)
+        soft = n_s * torch.softmax(mu, dim=-1).sum(dim=1).t()
+        err0 = float((zero_p - soft).abs().max())
+        if not err0 <= 1e-5:
+            raise AssertionError(f"K3 {bits} sigma=0: max_abs_err {err0:.3e}")
+        log(f"K3 {bits:7s} M={m} C={c} n={n_s} N={n}: bits equal "
+            f"({got_bits.numel()} words); max_abs_err sum_p {errs[0]:.3e} "
+            f"sum_ent {errs[1]:.3e}; sigma=0 {err0:.3e} (strided views)")
+    return worst
+
+
 # -- the main path ------------------------------------------------------------
 
-def member_state_dicts(seed: int):
-    """Per-member UNet3D state_dicts, drawn with numpy from ``seed`` at
-    each parameter's fan-in scale (torch's default init range)."""
+def member_state_dicts(seed: int, aleatoric: bool = False):
+    """Per-member UNet3D state_dicts (with the ``final_aleatoric`` head
+    when ``aleatoric``), drawn with numpy from ``seed`` at each
+    parameter's fan-in scale (torch's default init range)."""
     import torch
     from values_tpu_torch.models.unet3d import UNet3D
     rs = np.random.RandomState(seed)
     states = []
     for _ in range(N_MEMBERS):
-        ref = UNet3D(CLASSES, initial_filter_size=FILTERS).state_dict()
+        ref = UNet3D(CLASSES, initial_filter_size=FILTERS,
+                     aleatoric_loss=aleatoric).state_dict()
         state = {}
         for key, t in ref.items():
             # torch's default init range: the weight's dim-0 slice size
@@ -268,8 +381,6 @@ def main_path(card: str):
     import torch
     from values_tpu_torch.inference.scoring import make_scorer, score_rows
     from values_tpu_torch.models.torch_import import group_member_state_dicts
-    from values_tpu_torch.ops.kernels.conv3d import conv3d_fused
-    from values_tpu_torch.ops.kernels.entropy import fused_entropy
 
     states = member_state_dicts(SEED)
     grouped = group_member_state_dicts(states)
@@ -287,21 +398,17 @@ def main_path(card: str):
     warm = score(grouped, *batches[0])
     torch.cuda.synchronize()
 
-    conv3d_fused.launches = 0
-    fused_entropy.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     outs = [score(grouped, *b) for b in batches[1:]]
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"conv3d_fused": conv3d_fused.launches,
-                "fused_entropy": fused_entropy.launches}
-
-    if launches["conv3d_fused"] != 18 * N_BATCHES:
-        raise AssertionError(f"K1 launched {launches['conv3d_fused']} "
-                             f"times in {N_BATCHES} forwards, not 18 each")
-    if launches["fused_entropy"] != N_BATCHES:
-        raise AssertionError(f"K2 launched {launches['fused_entropy']} "
-                             f"times in {N_BATCHES} batches, not 1 each")
+    launches = read_launches()
+    # K1 18 times per forward, K2 once per batch, K3 never
+    expect_launches(launches, {"conv3d_fused": 18 * N_BATCHES,
+                               "fused_entropy": N_BATCHES,
+                               "sampled_softmax_stats": 0},
+                    "deterministic path")
     for out in [warm] + outs:
         if tuple(out.shape) != (10, BATCH) or not bool(
                 torch.isfinite(out).all()):
@@ -356,6 +463,224 @@ def throughput(grouped, card: str, batch: int, repeats: int = 2):
     if not bool(torch.isfinite(out).all()):
         raise AssertionError(f"non-finite scores at batch {batch}")
     log(f"batch {batch}: {vps:.2f} volumes/s; card {card}")
+
+
+# -- the aleatoric path -------------------------------------------------------
+
+def plain_aleatoric_scores(states, vols, gt, seed):
+    """The aleatoric scorer's function composed from plain parts on the
+    card: per-member aleatoric UNet3D modules (unfused, cuDNN with TF32
+    off) giving (mu, s), sigma = exp(s / 2), K3's plain version with the
+    same seed and bits, then the port's C2 finalize, Dice and C3."""
+    import torch
+    from values_tpu_torch.inference.scoring import (score_from_statistics,
+                                                    streaming_finalize)
+    from values_tpu_torch.models.unet3d import UNet3D
+    from values_tpu_torch.ops.kernels.sampling import \
+        sampled_softmax_stats_reference
+    mus, sigmas = [], []
+    with torch.no_grad():
+        for state in states:
+            net = UNet3D(CLASSES, initial_filter_size=FILTERS,
+                         aleatoric_loss=True)
+            net.load_state_dict(state, strict=True)
+            mu, s = net.cuda().eval()(vols)
+            mus.append(mu)
+            sigmas.append(torch.exp(s / 2.0))
+    mu = torch.stack(mus, dim=-2).reshape(-1, N_MEMBERS, CLASSES)
+    sigma = torch.stack(sigmas, dim=-2).reshape(-1, N_MEMBERS, CLASSES)
+    carry = sampled_softmax_stats_reference(mu, sigma, seed,
+                                            n_samples=N_ALEATORIC)
+    return score_from_statistics(
+        streaming_finalize(carry, N_MEMBERS * N_ALEATORIC), gt,
+        agg_patch=AGG_PATCH, threshold=THRESHOLD, ignore_index=0)
+
+
+def aleatoric_path(card: str):
+    """``make_aleatoric_scorer`` at full width: a warm-up batch, then
+    ALEATORIC_BATCHES batches of BATCH counted and timed; a 2-volume
+    float32 run against the plain path."""
+    import torch
+    from values_tpu_torch.inference.scoring import make_aleatoric_scorer
+    from values_tpu_torch.models.torch_import import group_member_state_dicts
+
+    states = member_state_dicts(SEED + 10, aleatoric=True)
+    grouped = group_member_state_dicts(states)
+    rs = np.random.RandomState(4)
+
+    def batch(n):  # drawn as the deterministic path draws its batches
+        vols = rs.rand(n, PATCH, PATCH, PATCH, 1).astype(np.float32)
+        gt = (rs.rand(n, PATCH, PATCH, PATCH) > 0.7).astype(np.uint8)
+        return (torch.from_numpy(vols).cuda(), torch.from_numpy(gt).cuda())
+
+    score, _ = make_aleatoric_scorer(N_MEMBERS, PATCH,
+                                     n_aleatoric_samples=N_ALEATORIC,
+                                     agg_patch=AGG_PATCH,
+                                     threshold=THRESHOLD,
+                                     dtype=torch.bfloat16)
+    batches = [batch(BATCH) for _ in range(ALEATORIC_BATCHES + 1)]
+    warm = score(grouped, *batches[0], 100)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [score(grouped, *b, 101 + i) for i, b in enumerate(batches[1:])]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches()
+    # K1 18 times per forward, K3 once per batch, K2 never
+    expect_launches(launches, {"conv3d_fused": 18 * ALEATORIC_BATCHES,
+                               "fused_entropy": 0,
+                               "sampled_softmax_stats": ALEATORIC_BATCHES},
+                    "aleatoric path")
+    for out in [warm] + outs:
+        if tuple(out.shape) != (10, BATCH) or not bool(
+                torch.isfinite(out).all()):
+            raise AssertionError(f"aleatoric scores of shape "
+                                 f"{tuple(out.shape)} are not a finite "
+                                 "(10, B) matrix")
+    vps = ALEATORIC_BATCHES * BATCH / elapsed
+    log(f"aleatoric path: {ALEATORIC_BATCHES} batches of {BATCH} x "
+        f"{PATCH}^3, {N_MEMBERS} members x {N_ALEATORIC} samples, bf16: "
+        f"{elapsed * 1e3:.1f} ms, {vps:.2f} volumes/s; launches "
+        f"{json.dumps(launches)}; card {card}")
+
+    # correctness: 2 volumes in float32 against the plain path
+    score32, rows = make_aleatoric_scorer(N_MEMBERS, PATCH,
+                                          n_aleatoric_samples=N_ALEATORIC,
+                                          agg_patch=AGG_PATCH,
+                                          threshold=THRESHOLD,
+                                          dtype=torch.float32)
+    vols, gt = batch(2)
+    got = score32(grouped, vols, gt, 7)
+    want = plain_aleatoric_scores(states, vols, gt, 7)
+    err = (got - want).abs()
+    # rtol/atol 1e-3, as the deterministic path's check: float32 rounding
+    # of the fused and the unfused forward, and K3's kernel against its
+    # plain version (1e-4 on sums of 50 terms), on image-level sums of
+    # 64^3 voxels; Dice moves ~1e-5 per voxel whose argmax ties
+    for i, name in enumerate(rows):
+        log(f"  aleatoric f32 vs plain path {name:34s} max_abs_err "
+            f"{float(err[i].max()):.3e}")
+    if not bool((err <= 1e-3 + 1e-3 * want.abs()).all()):
+        raise AssertionError("aleatoric float32 scorer disagrees with the "
+                             "plain path")
+    return launches, vps, batches[1], grouped
+
+
+# -- the score CLI ------------------------------------------------------------
+
+def write_cli_data(root: str, rs) -> dict:
+    """CLI_VOLUMES LIDC-style 64^3 volumes (``preprocessed/images``) with
+    their rater masks (``preprocessed/labels/<id>_<rater>_mask.npy``) and
+    a ``splits_texture.pkl`` whose fold 0 ``id_test`` lists them all.
+    Returns {subject: (volume, masks)}."""
+    images = os.path.join(root, "preprocessed", "images")
+    labels = os.path.join(root, "preprocessed", "labels")
+    os.makedirs(images)
+    os.makedirs(labels)
+    data = {}
+    raters = LIDC_DATAMODULE["num_raters"]
+    for k in range(CLI_VOLUMES):
+        subject = f"LIDC-{k:04d}"
+        vol = rs.rand(PATCH, PATCH, PATCH).astype(np.float32)
+        masks = (rs.rand(raters, PATCH, PATCH, PATCH) > 0.7).astype(np.uint8)
+        np.save(os.path.join(images, subject + ".npy"), vol)
+        for r in range(raters):
+            np.save(os.path.join(labels, f"{subject}_{r:02d}_mask.npy"),
+                    masks[r])
+        data[subject] = (vol, masks)
+    with open(os.path.join(root, "splits_texture.pkl"), "wb") as f:
+        pickle.dump([{"id_test": [s + ".npy" for s in data],
+                      "ood_test": [], "val": [], "train": []}], f)
+    return data
+
+
+def write_checkpoints(root: str, name: str, states, aleatoric: bool):
+    """One reference-format ``.ckpt`` per member state_dict."""
+    import torch
+    hparams = {
+        "seed": 123, "data_input_dir": root,
+        "model": {"_target_": "values_tpu.models.unet3d.UNet3D",
+                  "num_classes": CLASSES, "in_channels": 1,
+                  "initial_filter_size": FILTERS, "kernel_size": 3,
+                  "do_instancenorm": True},
+        "datamodule": dict(LIDC_DATAMODULE, splits_path=os.path.join(
+            root, "splits_texture.pkl"))}
+    if aleatoric:
+        hparams.update(aleatoric_loss=True, n_aleatoric_samples=N_ALEATORIC)
+    paths = []
+    for i, state in enumerate(states):
+        path = os.path.join(root, f"{name}_{i}.ckpt")
+        torch.save({"state_dict": {"model." + k: v for k, v in state.items()},
+                    "hyper_parameters": hparams}, path)
+        paths.append(path)
+    return paths
+
+
+def cli_path(card: str):
+    """``values_tpu_torch.inference.score.run_score`` on the card over
+    CLI_VOLUMES volumes at batch 32, for a deterministic and an aleatoric
+    set of N_MEMBERS checkpoints; the deterministic JSON against
+    ``make_scorer`` on the same batches."""
+    import torch
+    from values_tpu_torch.inference.score import run_score, score_cli
+    from values_tpu_torch.inference.scoring import make_scorer, score_rows
+    from values_tpu_torch.models.torch_import import group_member_state_dicts
+    rows = score_rows()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as root:
+        data = write_cli_data(root, np.random.RandomState(5))
+        sets = {"deterministic": member_state_dicts(SEED + 20),
+                "aleatoric": member_state_dicts(SEED + 30, aleatoric=True)}
+        results = {}
+        for name, states in sets.items():
+            ckpts = write_checkpoints(root, name, states,
+                                      name == "aleatoric")
+            out = os.path.join(root, f"{name}.json")
+            reset_launches()
+            t0 = time.perf_counter()
+            results[name] = run_score(score_cli([
+                "--checkpoint_paths", *ckpts, "-i", root, "--out", out,
+                "--test_split", "id", "--batch_size", str(BATCH),
+                "--agg_patch", str(AGG_PATCH), "--threshold",
+                str(THRESHOLD)]))
+            seconds = time.perf_counter() - t0
+            with open(out) as f:
+                on_disk = json.load(f)
+            if on_disk != results[name] or sorted(on_disk) != sorted(data):
+                raise AssertionError(f"CLI {name}: the JSON does not hold "
+                                     f"the {CLI_VOLUMES} subjects")
+            for subject, scores in on_disk.items():
+                if list(scores) != rows or not all(
+                        np.isfinite(v) for v in scores.values()):
+                    raise AssertionError(f"CLI {name} {subject}: scores "
+                                         f"{scores}")
+            log(f"CLI {name}: {CLI_VOLUMES} volumes x {len(rows)} scores, "
+                f"{N_MEMBERS} checkpoints, batch {BATCH}: {seconds:.2f} s "
+                f"(checkpoint reading and volume loading included); "
+                f"launches {json.dumps(read_launches())}; card {card}")
+        # the deterministic CLI against make_scorer on the same batches;
+        # tolerance: K1's bfloat16 one (|err| <= 2**-7 |ref| + 2e-3), as
+        # the two runs may round differently after K1's atomics order
+        score, _ = make_scorer(N_MEMBERS, PATCH, agg_patch=AGG_PATCH,
+                               threshold=THRESHOLD, dtype=torch.bfloat16)
+        grouped = group_member_state_dicts(sets["deterministic"])
+        subjects = sorted(data)
+        worst = 0.0
+        for i in range(0, len(subjects), BATCH):
+            chunk = subjects[i:i + BATCH]
+            vols = torch.from_numpy(np.stack([data[s][0] for s in chunk]))
+            gt = torch.from_numpy(np.stack([data[s][1] for s in chunk]))
+            want = score(grouped, vols.cuda(), gt.cuda()).cpu().numpy()
+            got = np.array([[results["deterministic"][s][r] for s in chunk]
+                            for r in rows])
+            err = np.abs(got - want)
+            worst = max(worst, float(err.max()))
+            if (err > 2 ** -7 * np.abs(want) + 2e-3).any():
+                raise AssertionError("the deterministic CLI disagrees with "
+                                     "make_scorer on the same batches")
+        log(f"CLI deterministic vs make_scorer: max_abs_err {worst:.3e}")
 
 
 # -- timings ------------------------------------------------------------------
@@ -446,6 +771,86 @@ def time_k2(launches, grouped, vols):
             "shape": f"S={m} C={c} N={n} f32 channels-last view"}
 
 
+def k3_operations(n: int, m: int, c: int, n_samples: int, bits: str) -> int:
+    """Operations K3 does as written (ops/kernels/sampling.py), counting
+    an FMA as 2 and each compare, select, integer op, exp, log, sqrt and
+    division as 1, per (voxel, member, sample) draw group of C classes:
+
+    - Philox: 10 rounds x (2 umulhi + 2 mul + 4 xor) = 80 per call of 4
+      words, one call per 4 classes, then 4 selects per class and call;
+    - counter hash: 10 per class (xor, add, 3 shift-xors, 2 muls) + 2 for
+      the group's salt;
+    - uniform 4, inverse CDF 55 (central 24, tail 27, branch select 4),
+      logits 3 (FMA, class mask), per class;
+    - softmax and entropy: 10 C - 1 (max, shift, exp, sum, divide, log,
+      log p, p log p, mask, sum, two accumulates).
+    """
+    groups = (c + 3) // 4
+    draw = (80 * groups + 4 * c * groups if bits == "philox"
+            else 10 * c + 2)
+    per_group = draw + c * (4 + 55 + 3) + 10 * c - 1
+    return n * m * n_samples * per_group
+
+
+def time_k3(launches, grouped, vols):
+    """K3 at the aleatoric path's shape: the (N, M, C) float32 mu and
+    sigma views of one bf16 batch's (mu, s) head, 10 samples per member,
+    Philox bits; beside its plain version and the stock-torch streaming
+    loop (torch.randn draws, softmax, accumulate per sample), the port's
+    counterpart of the JAX package's ``sampler="xla"``."""
+    import torch
+    from values_tpu_torch.inference.scoring import streaming_update
+    from values_tpu_torch.models.ensemble_unet3d import (
+        cast_weights, grouped_forward_fused)
+    from values_tpu_torch.ops.kernels.sampling import (
+        sampled_softmax_stats, sampled_softmax_stats_reference)
+    with torch.no_grad():
+        out = grouped_forward_fused(
+            cast_weights(grouped, torch.bfloat16, vols.device),
+            vols.to(torch.bfloat16), N_MEMBERS).to(torch.float32)
+    c = out.shape[-1] // 2
+    mu = out[..., :c].reshape(-1, N_MEMBERS, c)
+    sigma = torch.exp(out[..., c:] / 2.0).reshape(-1, N_MEMBERS, c)
+    n = mu.shape[0]
+    kw = dict(n_samples=N_ALEATORIC)
+    got = sampled_softmax_stats(mu, sigma, 3, **kw)
+    want = sampled_softmax_stats_reference(mu, sigma, 3, **kw)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    # the check phase's tolerance, on sums of M*n = 50 terms
+    if not all(bool(((g - w).abs() <= 1e-4 + 1e-5 * w.abs()).all())
+               for g, w in zip(got, want)):
+        raise AssertionError(f"K3 at the path's shape: max_abs_err {err}")
+    del got, want
+    ms = cuda_ms(lambda: sampled_softmax_stats(mu, sigma, 3, **kw))
+    plain_ms = cuda_ms(lambda: sampled_softmax_stats_reference(
+        mu, sigma, 3, **kw), reps=2, warmup=1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def loop():
+        carry = (torch.zeros((n, c), device="cuda"),
+                 torch.zeros((n,), device="cuda"))
+        for j in range(N_MEMBERS * N_ALEATORIC):
+            im = j // N_ALEATORIC
+            eps = torch.randn((n, c), generator=gen, device="cuda")
+            probs = torch.softmax(mu[:, im] + sigma[:, im] * eps, dim=-1)
+            carry = streaming_update(carry, probs, class_axis=-1)
+        return carry
+
+    loop_ms = cuda_ms(loop, reps=3)
+    bytes_moved = 4 * (2 * n * N_MEMBERS * c) + 4 * (c * n + n)
+    flops = k3_operations(n, N_MEMBERS, c, N_ALEATORIC, "philox")
+    bound_ms, bound_by = bound(bytes_moved, flops, "float32")
+    return {"name": "sampled_softmax_stats", "route": "triton",
+            "source": "values_tpu_torch/ops/kernels/sampling.py",
+            "replaces": "values_tpu/ops/pallas/sampling.py:135",
+            "launches": launches["sampled_softmax_stats"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "loop_ms": loop_ms,
+            "shape": f"N={n} M={N_MEMBERS} C={c} n={N_ALEATORIC} f32 "
+                     "strided views, philox"}
+
+
 def time_k1_layers(grouped, vols):
     """K1 at each of the path's 18 convs, in one bf16 forward at the
     path's batch: CUDA events around each call, beside each conv's bound.
@@ -504,20 +909,17 @@ def time_k1_layers(grouped, vols):
         json.dump(rows, fh, indent=1)
 
 
-def profile_batch(grouped, vols, gt):
-    """Device time of one main-path batch by kernel, from torch.profiler,
-    written to build/chip_smoke/profile_main_path.txt."""
+def profile_batch(score, args, label: str, filename: str):
+    """Device time of one batch, ``score(*args)``, by kernel, from
+    torch.profiler; the table is written to build/chip_smoke/<filename>."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from values_tpu_torch.inference.scoring import make_scorer
-    score, _ = make_scorer(N_MEMBERS, PATCH, agg_patch=AGG_PATCH,
-                           threshold=THRESHOLD, dtype=torch.bfloat16)
-    score(grouped, vols, gt)
+    score(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        score(grouped, vols, gt)
+        score(*args)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     table = prof.key_averages()
@@ -526,13 +928,13 @@ def profile_batch(grouped, vols, gt):
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels)
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "profile_main_path.txt"), "w") as fh:
+    with open(os.path.join(OUT_DIR, filename), "w") as fh:
         fh.write(table.table(sort_by="self_device_time_total",
                              row_limit=40))
     if not busy:
-        log("profile: no device time recorded (not measured)")
+        log(f"profile {label}: no device time recorded (not measured)")
         return
-    log(f"profile of one batch ({BATCH} volumes): device kernels "
+    log(f"profile of one {label} batch ({BATCH} volumes): device kernels "
         f"{busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall, idle share "
         f"{1 - busy / wall_us:.3f} (profiler on)")
     for e in kernels[:10]:
@@ -546,7 +948,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from values_tpu_torch.ops.kernels import conv3d, entropy
+    from values_tpu_torch.inference.scoring import (make_aleatoric_scorer,
+                                                    make_scorer)
+    from values_tpu_torch.ops.kernels import conv3d, entropy, sampling
 
     # float32 references run in full float32, not TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -558,37 +962,67 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"device: {name}; torch {torch.__version__} cuda "
-        f"{torch.version.cuda}; count {torch.cuda.device_count()}")
+        f"{torch.version.cuda}; cards visible {torch.cuda.device_count()}, "
+        "this run uses 1")
     log(smi)
 
-    t0 = time.perf_counter()
-    conv3d.load_kernel()
-    t1 = time.perf_counter()
-    entropy.fused_entropy(torch.full((2, 2, 256), 0.5, device="cuda"))
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    log(f"build: K1 nvcc {t1 - t0:.1f} s, K2 triton JIT {t2 - t1:.1f} s")
+    with phase("build", smi):
+        t0 = time.perf_counter()
+        conv3d.load_kernel()
+        t1 = time.perf_counter()
+        entropy.fused_entropy(torch.full((2, 2, 256), 0.5, device="cuda"))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        half = torch.full((256, 2, 2), 0.5, device="cuda")
+        sampling.sampled_softmax_stats(half, half, 0, n_samples=1)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        log(f"build: K1 nvcc {t1 - t0:.1f} s, K2 triton JIT {t2 - t1:.1f} s, "
+            f"K3 triton JIT {t3 - t2:.1f} s; card {smi}")
 
-    check_k1()
-    check_k2()
-    launches, vps, (vols, gt), grouped = main_path(smi)
-    kernels = [time_k1(launches, vols.shape[0]),
-               time_k2(launches, grouped, vols)]
-    for k in kernels:
-        log(f"{k['name']} [{k['shape']}]: {k['ms']:.3f} ms, bound "
-            f"{k['bound_ms']:.3f} ms ({k['bound_by']}), plain "
-            f"{k['plain_ms']:.3f} ms, library {k['library_ms']} ms; "
-            f"card {smi}")
-    for b in (16, 128):
-        throughput(grouped, smi, b)
-    time_k1_layers(grouped, vols)
-    profile_batch(grouped, vols, gt)
-    log(f"headline: {vps:.2f} volumes/s (ensemble-{N_MEMBERS}, "
-        f"{PATCH}^3, bf16, batch {BATCH}); card {smi}")
+    with phase("K1 check", smi):
+        check_k1()
+    with phase("K2 check", smi):
+        check_k2()
+    with phase("K3 check", smi):
+        check_k3()
+    with phase("deterministic path", smi):
+        launches, vps, (vols, gt), grouped = main_path(smi)
+    with phase("aleatoric path", smi):
+        a_launches, a_vps, (a_vols, a_gt), a_grouped = aleatoric_path(smi)
+    with phase("score CLI", smi):
+        cli_path(smi)
+    with phase("kernel timings", smi):
+        kernels = [time_k1(launches, vols.shape[0]),
+                   time_k2(launches, grouped, vols),
+                   time_k3(a_launches, a_grouped, a_vols)]
+        for k in kernels:
+            extra = (f", stock-torch loop {k['loop_ms']:.3f} ms"
+                     if "loop_ms" in k else "")
+            log(f"{k['name']} [{k['shape']}]: {k['ms']:.3f} ms, bound "
+                f"{k['bound_ms']:.3f} ms ({k['bound_by']}), plain "
+                f"{k['plain_ms']:.3f} ms, library {k['library_ms']} ms"
+                f"{extra}; launches {k['launches']}; card {smi}")
+    with phase("throughput and profiles", smi):
+        for b in (16, 128):
+            throughput(grouped, smi, b)
+        time_k1_layers(grouped, vols)
+        score, _ = make_scorer(N_MEMBERS, PATCH, agg_patch=AGG_PATCH,
+                               threshold=THRESHOLD, dtype=torch.bfloat16)
+        profile_batch(score, (grouped, vols, gt), "deterministic",
+                      "profile_main_path.txt")
+        a_score, _ = make_aleatoric_scorer(
+            N_MEMBERS, PATCH, n_aleatoric_samples=N_ALEATORIC,
+            agg_patch=AGG_PATCH, threshold=THRESHOLD, dtype=torch.bfloat16)
+        profile_batch(a_score, (a_grouped, a_vols, a_gt, 9), "aleatoric",
+                      "profile_aleatoric_path.txt")
+    log(f"headline: {vps:.2f} volumes/s deterministic, {a_vps:.2f} "
+        f"volumes/s aleatoric ({N_ALEATORIC} samples) (ensemble-{N_MEMBERS},"
+        f" {PATCH}^3, bf16, batch {BATCH}); card {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
+    # the run drives one card, whatever else the machine shows
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": name, "count": 1}}), flush=True)
     return 0
 
 

@@ -61,14 +61,25 @@ def test_no_jax_or_values_tpu_import(path):
             f"{path.name} imports {name}")
 
 
-def test_entry_point_needs_cuda_unless_cpu_is_asked_for():
+def test_entry_point_needs_cuda_unless_cpu_is_asked_for(tmp_path):
     from values_tpu_torch.core.device import resolve_device
-    from values_tpu_torch.inference.scoring import make_scorer
+    from values_tpu_torch.inference.score import run_score, score_cli
+    from values_tpu_torch.inference.scoring import (make_aleatoric_scorer,
+                                                    make_scorer)
     make_scorer(2, 16, device="cpu")
+    make_aleatoric_scorer(2, 16, device="cpu")
     assert resolve_device("cpu") == torch.device("cpu")
+    args = score_cli(["--checkpoint_paths", str(tmp_path / "none.ckpt"),
+                      "--out", str(tmp_path / "s.json")])
+    assert args.device == "cuda"
     if torch.cuda.is_available():
         make_scorer(2, 16)
+        make_aleatoric_scorer(2, 16)
         assert resolve_device(None).type == "cuda"
     else:
-        with pytest.raises(RuntimeError):
-            make_scorer(2, 16)
+        for build in (make_scorer, make_aleatoric_scorer):
+            with pytest.raises(RuntimeError):
+                build(2, 16)
+        # the CLI refuses before it reads a checkpoint
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_score(args)

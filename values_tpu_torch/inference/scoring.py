@@ -1,13 +1,17 @@
 """Per-volume scoring of the deep ensemble: only scalars come out.
 
 Counterpart of ``values_tpu/inference/scoring.py`` (``UNC_KEYS``,
-``AGG_KEYS``, ``score_rows`` :33-39; ``_score_from_stats`` and
-``make_packed_scorer`` :118-165) and of the softmax + statistics step of
+``AGG_KEYS``, ``score_rows`` :33-39; ``streaming_update`` and
+``streaming_finalize`` :58-75; ``_score_from_stats`` and
+``make_packed_scorer`` :118-165; ``make_packed_aleatoric_scorer``
+:210-293) and of the softmax + statistics step of
 ``values_tpu/ops/packed_stats.py:72-88``. One call runs the grouped
 ensemble forward (K1 for every 3x3x3 conv), the softmax in float32, the
 C2 statistics over the members (K2), the argmax and micro Dice against
 the ground truth, and the three C3 aggregations of each uncertainty map,
-and returns the (10, B) score matrix in :func:`score_rows` order.
+and returns the (10, B) score matrix in :func:`score_rows` order. The
+aleatoric scorer replaces the softmax and K2 by members x samples logit
+draws accumulated in one pass (K3).
 
 This is the scorer of the OoD, failure-detection and active-learning
 test beds, which need image-level scores and no per-voxel maps. The
@@ -16,7 +20,8 @@ tensors stay NDHWC, and B is any batch size.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Mapping, Sequence, Tuple, Union
+from typing import (Callable, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
@@ -24,7 +29,9 @@ from ..core.device import resolve_device
 from ..models.ensemble_unet3d import cast_weights, grouped_forward_fused
 from ..ops.aggregation import UNC_KEYS, aggregate_all_maps
 from ..ops.kernels.entropy import fused_entropy
+from ..ops.kernels.sampling import BITS, sampled_softmax_stats
 from ..ops.metrics import mean_rater_dice
+from ..ops.uncertainty import _guarded_plogp
 
 AGG_KEYS = ("patch_level", "image_level", "threshold")
 # four 2x pools: every spatial dim must halve cleanly down to the center
@@ -34,6 +41,25 @@ PATCH_MULTIPLE = 16
 def score_rows() -> List[str]:
     """Row labels of the (10, B) score matrix."""
     return ["dice"] + [f"{u}/{a}" for u in UNC_KEYS for a in AGG_KEYS]
+
+
+def streaming_update(carry, probs: torch.Tensor, class_axis: int = 0):
+    """Add one softmax sample to ``(sum_softmax, sum_entropy)``; the
+    port's layout is (C, N), class axis 0."""
+    sum_p, sum_ent = carry
+    return (sum_p + probs,
+            sum_ent - torch.sum(_guarded_plogp(probs), dim=class_axis))
+
+
+def streaming_finalize(carry, n_samples: int, class_axis: int = 0) -> dict:
+    """``(sum_softmax, sum_entropy)`` over ``n_samples`` samples -> the
+    C2 statistics in K2's layout (``mean_softmax``, PE, EE, MI)."""
+    sum_p, sum_ent = carry
+    mean_softmax = sum_p / n_samples
+    pe = -torch.sum(_guarded_plogp(mean_softmax), dim=class_axis)
+    ee = sum_ent / n_samples
+    return {"mean_softmax": mean_softmax, "pred_entropy": pe,
+            "expected_entropy": ee, "mutual_information": pe - ee}
 
 
 def ensemble_statistics(logits: torch.Tensor) -> dict:
@@ -62,6 +88,35 @@ def score_from_statistics(stats: Mapping[str, torch.Tensor],
     return torch.stack([r.to(torch.float32) for r in rows])
 
 
+def _scorer_device(patch: int, agg_patch: int, device) -> torch.device:
+    """Validate a scorer's patch geometry; resolve its device."""
+    device = resolve_device(device)
+    if patch % PATCH_MULTIPLE:
+        raise ValueError(f"patch={patch} must be a multiple of "
+                         f"{PATCH_MULTIPLE} (four 2x pools)")
+    if not 1 <= agg_patch <= patch:
+        raise ValueError(f"agg_patch={agg_patch} must lie in [1, {patch}]")
+    return device
+
+
+def _batch(volumes, gt, patch: int, device):
+    """Volumes as (B, p, p, p, 1) and gt as (B, [R,] p, p, p) on
+    ``device``, or ValueError."""
+    volumes = torch.as_tensor(volumes, device=device)
+    gt = torch.as_tensor(gt, device=device)
+    if volumes.ndim == 4:
+        volumes = volumes[..., None]
+    if tuple(volumes.shape[1:]) != (patch, patch, patch, 1):
+        raise ValueError(f"volumes: shape {tuple(volumes.shape)}, "
+                         f"expected (B, {patch}, {patch}, {patch}[, 1])")
+    if gt.shape[0] != volumes.shape[0] or gt.ndim not in (4, 5) \
+            or tuple(gt.shape[-3:]) != (patch,) * 3:
+        raise ValueError(f"gt: shape {tuple(gt.shape)}, expected "
+                         f"({volumes.shape[0]}, [R,] {patch}, {patch}, "
+                         f"{patch})")
+    return volumes, gt
+
+
 def make_scorer(members: int, patch: int, *, agg_patch: int = 10,
                 threshold: Union[float, Sequence[float]] = 0.3,
                 ignore_index: int = 0, dtype: torch.dtype = torch.bfloat16,
@@ -81,31 +136,73 @@ def make_scorer(members: int, patch: int, *, agg_patch: int = 10,
     in ``dtype``; softmax and statistics run in float32. ``device=None``
     means the CUDA card and raises when there is none.
     """
-    device = resolve_device(device)
-    if patch % PATCH_MULTIPLE:
-        raise ValueError(f"patch={patch} must be a multiple of "
-                         f"{PATCH_MULTIPLE} (four 2x pools)")
-    if not 1 <= agg_patch <= patch:
-        raise ValueError(f"agg_patch={agg_patch} must lie in [1, {patch}]")
+    device = _scorer_device(patch, agg_patch, device)
 
     def score(grouped_weights, volumes, gt) -> torch.Tensor:
-        volumes = torch.as_tensor(volumes, device=device)
-        gt = torch.as_tensor(gt, device=device)
-        if volumes.ndim == 4:
-            volumes = volumes[..., None]
-        if tuple(volumes.shape[1:]) != (patch, patch, patch, 1):
-            raise ValueError(f"volumes: shape {tuple(volumes.shape)}, "
-                             f"expected (B, {patch}, {patch}, {patch}[, 1])")
-        if gt.shape[0] != volumes.shape[0] or gt.ndim not in (4, 5) \
-                or tuple(gt.shape[-3:]) != (patch,) * 3:
-            raise ValueError(f"gt: shape {tuple(gt.shape)}, expected "
-                             f"({volumes.shape[0]}, [R,] {patch}, {patch}, "
-                             f"{patch})")
+        volumes, gt = _batch(volumes, gt, patch, device)
         weights = cast_weights(grouped_weights, dtype, device)
         with torch.no_grad():
             logits = grouped_forward_fused(weights, volumes.to(dtype),
                                            members)
             stats = ensemble_statistics(logits)
+            return score_from_statistics(stats, gt, agg_patch=agg_patch,
+                                         threshold=threshold,
+                                         ignore_index=ignore_index)
+
+    return score, score_rows()
+
+
+def make_aleatoric_scorer(members: int, patch: int, *,
+                          n_aleatoric_samples: int = 10,
+                          agg_patch: int = 10,
+                          threshold: Union[float, Sequence[float]] = 0.3,
+                          ignore_index: int = 0,
+                          dtype: torch.dtype = torch.bfloat16,
+                          bits: str = "philox",
+                          counter_rows: Optional[int] = None,
+                          device=None) -> Tuple[Callable, List[str]]:
+    """Build the scorer of the aleatoric-logit-sampling deep ensemble
+    (reference loop test_3D.py:458-469).
+
+    Returns ``(score_fn, rows)`` with ``score_fn(grouped_weights,
+    volumes, gt, seed) -> (10, B) float32``; weights, volumes and gt as
+    for :func:`make_scorer`, the weights with a ``final_aleatoric`` head.
+    One grouped forward gives (mu, s) per member; ``sigma = exp(s / 2)``;
+    K3 draws ``n_aleatoric_samples`` logit samples per member from the
+    int ``seed`` and accumulates their softmax and entropy; the C2
+    statistics over members x samples then feed Dice and C3. No (S, ...)
+    stack is ever held.
+
+    ``bits`` picks K3's bit source: ``"philox"``, or ``"counter"``, which
+    draws exactly what the JAX package's counter-bits kernel draws for a
+    D-block of ``counter_rows`` rows (default: the JAX kernel's own
+    default block) and needs ``128 % patch == 0``.
+    """
+    device = _scorer_device(patch, agg_patch, device)
+    if bits not in BITS:
+        raise ValueError(f"bits={bits!r} is not one of {BITS}")
+    if bits == "counter" and 128 % patch:
+        raise ValueError(f"bits='counter' needs a patch that divides 128, "
+                         f"not {patch}")
+    n = int(n_aleatoric_samples)
+
+    def score(grouped_weights, volumes, gt, seed: int) -> torch.Tensor:
+        volumes, gt = _batch(volumes, gt, patch, device)
+        if "final_aleatoric" not in grouped_weights:
+            raise ValueError("the aleatoric scorer needs weights with a "
+                             "'final_aleatoric' head")
+        weights = cast_weights(grouped_weights, dtype, device)
+        with torch.no_grad():
+            out = grouped_forward_fused(weights, volumes.to(dtype), members)
+            # (B, D, H, W, M, 2C): the first C channels are mu, the last s
+            out = out.to(torch.float32)
+            c = out.shape[-1] // 2
+            mu = out[..., :c].reshape(-1, members, c)
+            sigma = torch.exp(out[..., c:] / 2.0).reshape(-1, members, c)
+            carry = sampled_softmax_stats(
+                mu, sigma, seed, n_samples=n, bits=bits,
+                spatial=(patch,) * 3, counter_rows=counter_rows)
+            stats = streaming_finalize(carry, members * n)
             return score_from_statistics(stats, gt, agg_patch=agg_patch,
                                          threshold=threshold,
                                          ignore_index=ignore_index)

@@ -2,7 +2,8 @@
 grouped ensemble weights of :mod:`values_tpu_torch.models.ensemble_unet3d`.
 
 Counterpart of ``values_tpu/models/torch_import.py`` (``strip_model_prefix``
-:48, ``unet3d_params_to_torch`` :173-245) and of
+:48, ``unet3d_params_to_torch`` :173-245, ``load_reference_checkpoint``
+:258-274) and of
 ``values_tpu/models/ensemble_unet3d.py::group_member_variables`` (:187-230).
 The port keeps its own copies: it imports nothing of the JAX package.
 
@@ -21,7 +22,7 @@ Cout) with bias (M, Cout).
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +79,35 @@ def unet3d_params_to_torch(variables: Mapping[str, Any]
             1, f, 1, 1, 1)
         state["model.output_reconstruction_map.bias"] = torch.zeros(1)
     return state
+
+
+def require_unet3d(hparams: Any, path: str) -> None:
+    """Raise ``NotImplementedError`` for a checkpoint whose model target
+    is not of the UNet3D family: the port reads only those so far."""
+    try:
+        target = str(hparams["model"].get("_target_", ""))
+    except (KeyError, AttributeError, TypeError):
+        target = ""
+    if "hrnet" in target.lower():
+        raise NotImplementedError(
+            f"{path}: HRNet checkpoints belong to the 2D slice of the port "
+            "(ROADMAP.md, Queue 1: \"2D\"), which is not ported yet")
+
+
+def load_reference_checkpoint(path: str
+                              ) -> Tuple[Dict[str, Any],
+                                         Dict[str, torch.Tensor]]:
+    """Read a reference Lightning ``.ckpt`` (zip or legacy pickle);
+    returns ``(hyper_parameters, state_dict)`` with ``model.``-prefixed
+    keys. UNet3D family only."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    hparams = ckpt["hyper_parameters"]
+    if hasattr(hparams, "items"):
+        hparams = {k: v for k, v in hparams.items()}
+    require_unet3d(hparams, path)
+    state = {(k if k.startswith("model.") else "model." + k):
+             torch.as_tensor(v) for k, v in ckpt["state_dict"].items()}
+    return hparams, state
 
 
 def _member_kernels(state: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
