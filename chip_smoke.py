@@ -50,6 +50,7 @@ AGG_PATCH, THRESHOLD = 10, 0.3
 N_ALEATORIC = 10          # logit samples per member (the reference's default)
 ALEATORIC_BATCHES = 2
 CLI_VOLUMES = 64
+CLI_SEED = 123            # the checkpoints' hparams["seed"]
 # the LIDC datamodule of configs/datamodule/lidc_idri_config.yaml
 LIDC_DATAMODULE = {"dataset_name": "LIDC-IDRI", "shift_feature": "texture",
                    "num_raters": 4, "data_num_folds": 5, "data_fold_id": 0,
@@ -600,7 +601,7 @@ def write_checkpoints(root: str, name: str, states, aleatoric: bool):
     """One reference-format ``.ckpt`` per member state_dict."""
     import torch
     hparams = {
-        "seed": 123, "data_input_dir": root,
+        "seed": CLI_SEED, "data_input_dir": root,
         "model": {"_target_": "values_tpu.models.unet3d.UNet3D",
                   "num_classes": CLASSES, "in_channels": 1,
                   "initial_filter_size": FILTERS, "kernel_size": 3,
@@ -621,13 +622,25 @@ def write_checkpoints(root: str, name: str, states, aleatoric: bool):
 def cli_path(card: str):
     """``values_tpu_torch.inference.score.run_score`` on the card over
     CLI_VOLUMES volumes at batch 32, for a deterministic and an aleatoric
-    set of N_MEMBERS checkpoints; the deterministic JSON against
-    ``make_scorer`` on the same batches."""
+    set of N_MEMBERS checkpoints, each run's launches counted; each JSON
+    against its scorer (``make_scorer``, ``make_aleatoric_scorer`` with
+    the CLI's batch seeds) on the same batches."""
     import torch
+    from values_tpu_torch.core.seed import make_generator
     from values_tpu_torch.inference.score import run_score, score_cli
-    from values_tpu_torch.inference.scoring import make_scorer, score_rows
+    from values_tpu_torch.inference.scoring import (make_aleatoric_scorer,
+                                                    make_scorer, score_rows)
     from values_tpu_torch.models.torch_import import group_member_state_dicts
     rows = score_rows()
+    n_batches = -(-CLI_VOLUMES // BATCH)
+    # K1 18 times per forward; K2 once per deterministic batch, K3 once
+    # per aleatoric one
+    want_launches = {
+        "deterministic": {"conv3d_fused": 18 * n_batches,
+                          "fused_entropy": n_batches,
+                          "sampled_softmax_stats": 0},
+        "aleatoric": {"conv3d_fused": 18 * n_batches, "fused_entropy": 0,
+                      "sampled_softmax_stats": n_batches}}
     os.makedirs(OUT_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as root:
         data = write_cli_data(root, np.random.RandomState(5))
@@ -646,6 +659,8 @@ def cli_path(card: str):
                 "--agg_patch", str(AGG_PATCH), "--threshold",
                 str(THRESHOLD)]))
             seconds = time.perf_counter() - t0
+            launches = read_launches()
+            expect_launches(launches, want_launches[name], f"CLI {name}")
             with open(out) as f:
                 on_disk = json.load(f)
             if on_disk != results[name] or sorted(on_disk) != sorted(data):
@@ -659,28 +674,42 @@ def cli_path(card: str):
             log(f"CLI {name}: {CLI_VOLUMES} volumes x {len(rows)} scores, "
                 f"{N_MEMBERS} checkpoints, batch {BATCH}: {seconds:.2f} s "
                 f"(checkpoint reading and volume loading included); "
-                f"launches {json.dumps(read_launches())}; card {card}")
-        # the deterministic CLI against make_scorer on the same batches;
-        # tolerance: K1's bfloat16 one (|err| <= 2**-7 |ref| + 2e-3), as
-        # the two runs may round differently after K1's atomics order
-        score, _ = make_scorer(N_MEMBERS, PATCH, agg_patch=AGG_PATCH,
-                               threshold=THRESHOLD, dtype=torch.bfloat16)
-        grouped = group_member_state_dicts(sets["deterministic"])
+                f"launches {json.dumps(launches)}; card {card}")
+        # each CLI's JSON against its scorer on the same batches, the
+        # aleatoric one with the seeds run_score draws (a generator
+        # seeded with the checkpoints' seed); tolerance: K1's
+        # bfloat16 one (|err| <= 2**-7 |ref| + 2e-3), as the two runs may
+        # round differently after K1's atomics order
+        common = dict(agg_patch=AGG_PATCH, threshold=THRESHOLD,
+                      dtype=torch.bfloat16)
+        scorers = {"deterministic": make_scorer(N_MEMBERS, PATCH,
+                                                **common)[0],
+                   "aleatoric": make_aleatoric_scorer(
+                       N_MEMBERS, PATCH, n_aleatoric_samples=N_ALEATORIC,
+                       **common)[0]}
         subjects = sorted(data)
-        worst = 0.0
-        for i in range(0, len(subjects), BATCH):
-            chunk = subjects[i:i + BATCH]
-            vols = torch.from_numpy(np.stack([data[s][0] for s in chunk]))
-            gt = torch.from_numpy(np.stack([data[s][1] for s in chunk]))
-            want = score(grouped, vols.cuda(), gt.cuda()).cpu().numpy()
-            got = np.array([[results["deterministic"][s][r] for s in chunk]
-                            for r in rows])
-            err = np.abs(got - want)
-            worst = max(worst, float(err.max()))
-            if (err > 2 ** -7 * np.abs(want) + 2e-3).any():
-                raise AssertionError("the deterministic CLI disagrees with "
-                                     "make_scorer on the same batches")
-        log(f"CLI deterministic vs make_scorer: max_abs_err {worst:.3e}")
+        for name, score in scorers.items():
+            grouped = group_member_state_dicts(sets[name])
+            gen = make_generator(CLI_SEED)
+            worst = 0.0
+            for i in range(0, len(subjects), BATCH):
+                chunk = subjects[i:i + BATCH]
+                vols = torch.from_numpy(np.stack([data[s][0]
+                                                  for s in chunk]))
+                gt = torch.from_numpy(np.stack([data[s][1] for s in chunk]))
+                seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
+                args = (grouped, vols.cuda(), gt.cuda())
+                if name == "aleatoric":
+                    args += (seed,)
+                want = score(*args).cpu().numpy()
+                got = np.array([[results[name][s][r] for s in chunk]
+                                for r in rows])
+                err = np.abs(got - want)
+                worst = max(worst, float(err.max()))
+                if (err > 2 ** -7 * np.abs(want) + 2e-3).any():
+                    raise AssertionError(f"the {name} CLI disagrees with "
+                                         "its scorer on the same batches")
+            log(f"CLI {name} vs its scorer: max_abs_err {worst:.3e}")
 
 
 # -- timings ------------------------------------------------------------------
@@ -771,24 +800,46 @@ def time_k2(launches, grouped, vols):
             "shape": f"S={m} C={c} N={n} f32 channels-last view"}
 
 
-def k3_operations(n: int, m: int, c: int, n_samples: int, bits: str) -> int:
-    """Operations K3 does as written (ops/kernels/sampling.py), counting
-    an FMA as 2 and each compare, select, integer op, exp, log, sqrt and
-    division as 1, per (voxel, member, sample) draw group of C classes:
+ACKLAM_CENTRAL, ACKLAM_TAIL = 24, 27   # operations of each branch
+ACKLAM_TAIL_SHARE = 2 * 0.02425       # P(u < PLOW or u > 1 - PLOW)
 
-    - Philox: 10 rounds x (2 umulhi + 2 mul + 4 xor) = 80 per call of 4
-      words, one call per 4 classes, then 4 selects per class and call;
-    - counter hash: 10 per class (xor, add, 3 shift-xors, 2 muls) + 2 for
-      the group's salt;
-    - uniform 4, inverse CDF 55 (central 24, tail 27, branch select 4),
-      logits 3 (FMA, class mask), per class;
-    - softmax and entropy: 10 C - 1 (max, shift, exp, sum, divide, log,
-      log p, p log p, mask, sum, two accumulates).
+
+def k3_operations(n: int, m: int, c: int, n_samples: int, bits: str, *,
+                  as_written: bool = False) -> float:
+    """Operations of K3's function at (N, M, C, n_samples), counting an
+    FMA as 2 and each compare, select, integer op, exp, log, sqrt and
+    division as 1, per (voxel, member, sample) draw group of C classes.
+
+    What the function needs (the default):
+
+    - bits: Philox4x32-10 gives 4 words for 80 operations (10 rounds x
+      2 umulhi, 2 mul, 4 xor), so 20 per class plus 1 to place the word;
+      the counter hash 10 per class (xor, add, 3 shift-xors, 2 muls) + 2
+      for the group's salt;
+    - per class: uniform 4; the inverse CDF's branch test 2, then only
+      the branch that applies: the central one (24) with probability
+      1 - 2 PLOW, a tail (27) with 2 PLOW, the share of the uniform draws
+      that land in a tail (in expectation; at 8.4e8 draws this run's
+      share is within 1e-4 of it); logits 2 (one FMA);
+    - softmax and entropy 9 C - 1 (max, shift, exp, sum, divide, log,
+      log p, p log p, sum, two accumulates).
+
+    ``as_written``: the work the kernel does as written instead -- a
+    whole Philox call per 4 classes and 4 selects per class, both Acklam
+    branches and a 4-operation select on every draw, a class mask on the
+    logits and on p log p.
     """
-    groups = (c + 3) // 4
-    draw = (80 * groups + 4 * c * groups if bits == "philox"
-            else 10 * c + 2)
-    per_group = draw + c * (4 + 55 + 3) + 10 * c - 1
+    if as_written:
+        groups = (c + 3) // 4
+        draw = (80 * groups + 4 * c * groups if bits == "philox"
+                else 10 * c + 2)
+        per_class = 4 + ACKLAM_CENTRAL + ACKLAM_TAIL + 4 + 3
+        per_group = draw + c * per_class + 10 * c - 1
+    else:
+        draw = 21 * c if bits == "philox" else 10 * c + 2
+        normal = 2 + (1 - ACKLAM_TAIL_SHARE) * ACKLAM_CENTRAL \
+            + ACKLAM_TAIL_SHARE * ACKLAM_TAIL
+        per_group = draw + c * (4 + normal + 2) + 9 * c - 1
     return n * m * n_samples * per_group
 
 
@@ -799,11 +850,11 @@ def time_k3(launches, grouped, vols):
     loop (torch.randn draws, softmax, accumulate per sample), the port's
     counterpart of the JAX package's ``sampler="xla"``."""
     import torch
-    from values_tpu_torch.inference.scoring import streaming_update
     from values_tpu_torch.models.ensemble_unet3d import (
         cast_weights, grouped_forward_fused)
     from values_tpu_torch.ops.kernels.sampling import (
         sampled_softmax_stats, sampled_softmax_stats_reference)
+    from values_tpu_torch.ops.uncertainty import entropy
     with torch.no_grad():
         out = grouped_forward_fused(
             cast_weights(grouped, torch.bfloat16, vols.device),
@@ -827,26 +878,32 @@ def time_k3(launches, grouped, vols):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
 
     def loop():
-        carry = (torch.zeros((n, c), device="cuda"),
-                 torch.zeros((n,), device="cuda"))
+        sum_p = torch.zeros((n, c), device="cuda")
+        sum_ent = torch.zeros((n,), device="cuda")
         for j in range(N_MEMBERS * N_ALEATORIC):
             im = j // N_ALEATORIC
             eps = torch.randn((n, c), generator=gen, device="cuda")
             probs = torch.softmax(mu[:, im] + sigma[:, im] * eps, dim=-1)
-            carry = streaming_update(carry, probs, class_axis=-1)
-        return carry
+            sum_p = sum_p + probs
+            sum_ent = sum_ent + entropy(probs, class_axis=-1)
+        return sum_p, sum_ent
 
     loop_ms = cuda_ms(loop, reps=3)
     bytes_moved = 4 * (2 * n * N_MEMBERS * c) + 4 * (c * n + n)
     flops = k3_operations(n, N_MEMBERS, c, N_ALEATORIC, "philox")
     bound_ms, bound_by = bound(bytes_moved, flops, "float32")
+    # the kernel's own work, beside the bound (not the bound)
+    written = k3_operations(n, N_MEMBERS, c, N_ALEATORIC, "philox",
+                            as_written=True)
     return {"name": "sampled_softmax_stats", "route": "triton",
             "source": "values_tpu_torch/ops/kernels/sampling.py",
             "replaces": "values_tpu/ops/pallas/sampling.py:135",
             "launches": launches["sampled_softmax_stats"],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "loop_ms": loop_ms,
+            "loop_ms": loop_ms, "operations": flops,
+            "operations_as_written": written,
+            "as_written_ms": written / PEAK_FLOPS["float32"] * 1e3,
             "shape": f"N={n} M={N_MEMBERS} C={c} n={N_ALEATORIC} f32 "
                      "strided views, philox"}
 
@@ -997,8 +1054,11 @@ def main() -> int:
                    time_k2(launches, grouped, vols),
                    time_k3(a_launches, a_grouped, a_vols)]
         for k in kernels:
-            extra = (f", stock-torch loop {k['loop_ms']:.3f} ms"
-                     if "loop_ms" in k else "")
+            extra = (f", stock-torch loop {k['loop_ms']:.3f} ms; "
+                     f"{k['operations'] / 1e9:.2f} G operations needed, "
+                     f"{k['operations_as_written'] / 1e9:.2f} G as the "
+                     f"kernel is written ({k['as_written_ms']:.3f} ms at "
+                     "the f32 peak)" if "loop_ms" in k else "")
             log(f"{k['name']} [{k['shape']}]: {k['ms']:.3f} ms, bound "
                 f"{k['bound_ms']:.3f} ms ({k['bound_by']}), plain "
                 f"{k['plain_ms']:.3f} ms, library {k['library_ms']} ms"

@@ -205,21 +205,47 @@ def test_cli_rejects_multiwindow(toy, tmp_path):
             os.remove(str(pre / "labelsTr" / f"zz_big_{rater:02d}.npy"))
 
 
+def _with_model_hparams(root, src, dst, **model):
+    """A copy of the native checkpoint ``src`` whose model hparams are
+    updated with ``model``."""
+    hp = _hparams(root)
+    hp["model"].update(model)
+    with open(src, "rb") as f:
+        payload = pickle.load(f)
+    payload["hyper_parameters"] = hp
+    with open(dst, "wb") as f:
+        pickle.dump(payload, f)
+    return str(dst)
+
+
 @pytest.mark.parametrize("case", ["ssn", "tta", "n_pred", "devices"])
 def test_cli_refuses_what_is_not_ported(toy, tmp_path, case):
+    """``n_pred``: MC dropout, on a model with dropout."""
     root, det, _, _ = toy
     ckpts, extra = det, []
     if case == "ssn":
-        hp = _hparams(root)
-        hp["model"]["_target_"] = "values_tpu.models.ssn_unet3d.SsnUNet3D"
-        with open(det[0], "rb") as f:
-            payload = pickle.load(f)
-        payload["hyper_parameters"] = hp
-        ckpts = [str(tmp_path / "ssn.ckpt")]
-        with open(ckpts[0], "wb") as f:
-            pickle.dump(payload, f)
+        ckpts = [_with_model_hparams(
+            root, det[0], tmp_path / "ssn.ckpt",
+            _target_="values_tpu.models.ssn_unet3d.SsnUNet3D")]
     else:
         extra = {"tta": ["-tta"], "n_pred": ["--n_pred", "2"],
                  "devices": ["--devices", "2"]}[case]
+    if case == "n_pred":
+        ckpts = [_with_model_hparams(root, det[0], tmp_path / "mcd.ckpt",
+                                     do_dropout=True)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_score(_port_args(root, ckpts, tmp_path / "s.json", *extra))
+
+
+def test_cli_n_pred_needs_a_dropout_model(toy, tmp_path):
+    """``--n_pred 2`` on a model without dropout has no scorer: both CLIs
+    raise ValueError."""
+    root, det, _, _ = toy
+    with pytest.raises(ValueError, match="do_dropout=False"):
+        run_score(_port_args(root, det, tmp_path / "s.json", "--n_pred",
+                             "2"))
+    with pytest.raises(ValueError, match="do_dropout=False"):
+        jax_run_score(jax_score_cli([
+            "--checkpoint_paths", *det, "-i", str(root),
+            "--out", str(tmp_path / "j.json"), "--test_split", "val",
+            "--dtype", "float32", "--n_pred", "2"]))

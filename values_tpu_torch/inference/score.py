@@ -95,7 +95,10 @@ def build_scorer(hparams: Dict, members: int, args, device
                  ) -> Tuple[Callable, List[str]]:
     """Pick the scorer for the checkpoint's uncertainty method, as
     ``values_tpu/inference/score.py::_build_scorer`` (:79-124) does.
-    Returns ``(score(weights, volumes, gt, seed), rows)``."""
+    Returns ``(score(weights, volumes, gt, seed), rows)``. ``--n_pred >
+    1`` on a model without dropout has no scorer in either package and
+    raises ValueError; the scorers not ported yet raise
+    NotImplementedError."""
     patch = hparams["datamodule"]["patch_size"]
     threshold = args.threshold
     if args.threshold_path:
@@ -123,6 +126,10 @@ def build_scorer(hparams: Dict, members: int, args, device
             n_aleatoric_samples=hparams.get("n_aleatoric_samples", 10),
             **common)
     if args.n_pred and args.n_pred > 1:
+        if not hparams["model"].get("do_dropout", False):
+            raise ValueError(
+                "--n_pred > 1 needs a dropout model (MC dropout); this "
+                "checkpoint's model has do_dropout=False")
         raise _not_ported("the MC-dropout scorer (--n_pred > 1)", SCORERS)
     score, rows = scoring.make_scorer(members, patch, **common)
     return (lambda weights, volumes, gt, seed: score(weights, volumes, gt),

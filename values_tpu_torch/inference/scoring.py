@@ -1,8 +1,8 @@
 """Per-volume scoring of the deep ensemble: only scalars come out.
 
 Counterpart of ``values_tpu/inference/scoring.py`` (``UNC_KEYS``,
-``AGG_KEYS``, ``score_rows`` :33-39; ``streaming_update`` and
-``streaming_finalize`` :58-75; ``_score_from_stats`` and
+``AGG_KEYS``, ``score_rows`` :33-39; ``streaming_finalize`` :67-75, K3
+doing ``streaming_update``'s work; ``_score_from_stats`` and
 ``make_packed_scorer`` :118-165; ``make_packed_aleatoric_scorer``
 :210-293) and of the softmax + statistics step of
 ``values_tpu/ops/packed_stats.py:72-88``. One call runs the grouped
@@ -41,14 +41,6 @@ PATCH_MULTIPLE = 16
 def score_rows() -> List[str]:
     """Row labels of the (10, B) score matrix."""
     return ["dice"] + [f"{u}/{a}" for u in UNC_KEYS for a in AGG_KEYS]
-
-
-def streaming_update(carry, probs: torch.Tensor, class_axis: int = 0):
-    """Add one softmax sample to ``(sum_softmax, sum_entropy)``; the
-    port's layout is (C, N), class axis 0."""
-    sum_p, sum_ent = carry
-    return (sum_p + probs,
-            sum_ent - torch.sum(_guarded_plogp(probs), dim=class_axis))
 
 
 def streaming_finalize(carry, n_samples: int, class_axis: int = 0) -> dict:
