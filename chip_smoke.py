@@ -12,6 +12,9 @@ Phases, each of which raises on failure:
 4. hold K2 against its plain version, on a stack with exact zeros;
 5. hold K3 against its plain version in both bit modes (the bits
    exactly, the sums within tolerance, sigma = 0 exactly softmax);
+5b. hold K1b (K1's autograd Function) against autograd through K1's
+   plain version: dx, dW and db, f32 and bf16, with statistics and with
+   the leaky and ReLU epilogues;
 6. run the deterministic path at full width -- the 5-member UNet3D
    ensemble (2 classes, initial filter size 8) scoring batches of 32
    64^3 volumes through ``make_scorer`` -- count each kernel's launches
@@ -21,9 +24,15 @@ Phases, each of which raises on failure:
    samples each, through ``make_aleatoric_scorer`` (K1 + K3);
 8. the ``score`` CLI over 64 LIDC-style volumes for a deterministic and
    an aleatoric set of 5 reference-format checkpoints;
+8b. the training CLI on ``softmax_config`` at its published widths
+   (UNet3D, 64^3 patches, batch 8) over a synthetic toy ``Case_1``, one
+   epoch at f32 and one at bf16, each with validation and a checkpoint
+   that the score CLI then scores, launches counted; the f32 run's first
+   step held against the plain path (K1b's plain version in every conv);
 9. time each kernel at its path's shape beside its bound, its plain
-   version and a library yardstick (K3: the stock-torch sampling loop),
-   and break one batch of each path down by device kernel with
+   version and a library yardstick (K3: the stock-torch sampling loop;
+   K1b: cuDNN's input gradient), time and profile a training step, and
+   break one batch of each scoring path down by device kernel with
    torch.profiler.
 
 Prints a ``{"kernels": [...]}`` JSON line and ends with
@@ -36,6 +45,7 @@ import contextlib
 import json
 import os
 import pickle
+import shutil
 import statistics
 import subprocess
 import sys
@@ -78,22 +88,28 @@ def phase(name: str, card: str):
     log(f"phase {name}: {time.perf_counter() - t0:.1f} s; card {card}")
 
 
-def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
-    from values_tpu_torch.ops.kernels.conv3d import conv3d_fused
+def _wrappers() -> dict:
+    """Each kernel's wrapper, which counts its launches."""
+    from values_tpu_torch.ops.kernels.conv3d import (conv3d_fused,
+                                                     conv3d_fused_train)
     from values_tpu_torch.ops.kernels.entropy import fused_entropy
     from values_tpu_torch.ops.kernels.sampling import sampled_softmax_stats
-    for wrapper in (conv3d_fused, fused_entropy, sampled_softmax_stats):
+    return {"conv3d_fused": conv3d_fused,
+            "conv3d_fused_train": conv3d_fused_train,
+            "fused_entropy": fused_entropy,
+            "sampled_softmax_stats": sampled_softmax_stats}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for wrapper in _wrappers().values():
         wrapper.launches = 0
 
 
 def read_launches() -> dict:
-    from values_tpu_torch.ops.kernels.conv3d import conv3d_fused
-    from values_tpu_torch.ops.kernels.entropy import fused_entropy
-    from values_tpu_torch.ops.kernels.sampling import sampled_softmax_stats
-    return {"conv3d_fused": conv3d_fused.launches,
-            "fused_entropy": fused_entropy.launches,
-            "sampled_softmax_stats": sampled_softmax_stats.launches}
+    """K1's count holds every K1 launch, K1b's dx launches included;
+    conv3d_fused_train's holds those dx launches alone."""
+    return {name: w.launches for name, w in _wrappers().items()}
 
 
 def expect_launches(launches: dict, want: dict, what: str) -> None:
@@ -333,6 +349,98 @@ def check_k3():
     return worst
 
 
+# -- K1b against autograd through K1's plain version --------------------------
+
+def plain_train_conv(x, weight, bias=None, groups=1, activation="none",
+                     emit_stats=False):
+    """K1b's plain version: autograd through conv3d_fused_reference."""
+    from values_tpu_torch.ops.kernels.conv3d import conv3d_fused_reference
+    return conv3d_fused_reference(x, weight, bias, groups,
+                                  activation=activation,
+                                  emit_stats=emit_stats)
+
+
+def k1b_grads(fn, x, weight, bias, groups, case, gy, g1, g2):
+    """(dx, dW, db) of sum(out * gy) (+ sum(s1 * g1) + sum(s2 * g2) for
+    the statistics case) through ``fn``."""
+    import torch
+    x, weight, bias = (t.detach().requires_grad_(True)
+                       for t in (x, weight, bias))
+    if case == "stats":
+        y, (s1, s2) = fn(x, weight, bias, groups, emit_stats=True)
+        total = (y.float() * gy).sum() + (s1 * g1).sum() + (s2 * g2).sum()
+    else:
+        y = fn(x, weight, bias, groups, activation=case)
+        total = (y.float() * gy).sum()
+    return torch.autograd.grad(total, (x, weight, bias))
+
+
+# (name, dtype, B, volume, G, Cin, Cout)
+K1B_CASES = [("B 2, 32^3, G 2, 16 -> 8", "float32", 2, 32, 2, 16, 8),
+             ("expand_1_1: B 8, 64^3, G 1, 16 -> 8", "bfloat16", 8, 64, 1,
+              16, 8)]
+# Tolerances: float32 atol 1e-4 max|g| -- dx, dW and db each add up to
+# 27 Cout (dx) or B D H W (dW, db) products in another order than cuDNN
+# does on the plain side (TF32 off); bfloat16 K1's rule, 2**-7 |ref| +
+# 2e-3 max|g|: both sides round the same float32 sums to bfloat16 and an
+# ulp of order can flip a rounding.
+K1B_TOL = {"float32": (0.0, 1e-4), "bfloat16": (2 ** -7, 2e-3)}
+
+
+def check_k1b():
+    """K1b's dx, dW and db on the card against autograd through K1's
+    plain version, for the statistics case (activation none) and the
+    leaky and ReLU epilogues; each backward's dx launches K1 once."""
+    import torch
+    from values_tpu_torch.ops.kernels.conv3d import conv3d_fused_train
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    worst = 0.0
+    for name, dt, b, p, g, cin, cout in K1B_CASES:
+        dtype = getattr(torch, dt)
+        rtol, atol_rel = K1B_TOL[dt]
+        x, weight, bias, _, _ = k1_inputs(gen, dtype, b, p, p, p, g, cin, 0,
+                                          cout, False)
+        gy = torch.randn((b, p, p, p, g * cout), generator=gen,
+                         device="cuda")
+        # no cotangent within 1e-3 of the activations' kink, where the
+        # kernel and the plain forward, rounding apart, may take
+        # different branches
+        pre = plain_train_conv(x, weight, bias, g).float()
+        gy = torch.where(pre.abs() < 1e-3 * pre.abs().max(), 0.0, gy)
+        # statistics cotangents large enough to survive K1b's bf16 fold
+        # (fault R5: a shift below half an ulp of dy is rounded away)
+        g1, g2 = torch.randn((2, b, g * cout), generator=gen,
+                             device="cuda") * 0.1
+        for case in ("stats", "leaky", "relu"):
+            reset_launches()
+            got = k1b_grads(conv3d_fused_train, x, weight, bias, g, case, gy,
+                            g1, g2)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            expect_launches(launches, {"conv3d_fused": 2,
+                                       "conv3d_fused_train": 1,
+                                       "fused_entropy": 0,
+                                       "sampled_softmax_stats": 0},
+                            f"K1b {name} {case} (forward + dx)")
+            want = k1b_grads(plain_train_conv, x, weight, bias, g, case, gy,
+                             g1, g2)
+            errs = []
+            for what, a, w in zip(("dx", "dW", "db"), got, want):
+                a, w = a.float(), w.float()
+                err = (a - w).abs()
+                scale = float(w.abs().max())
+                errs.append(float(err.max()) / scale)
+                if bool((err > atol_rel * scale + rtol * w.abs()).any()):
+                    raise AssertionError(
+                        f"K1b {name} {case} {what}: max_abs_err "
+                        f"{float(err.max()):.3e} (max|g| {scale:.3e})")
+            worst = max(worst, *errs)
+            log(f"K1b {dt:8s} {name:36s} {case:5s}: max_abs_err / max|g| "
+                f"dx {errs[0]:.2e} dW {errs[1]:.2e} db {errs[2]:.2e}; "
+                f"K1 launched for dx")
+    return worst
+
+
 # -- the main path ------------------------------------------------------------
 
 def member_state_dicts(seed: int, aleatoric: bool = False):
@@ -407,6 +515,7 @@ def main_path(card: str):
     launches = read_launches()
     # K1 18 times per forward, K2 once per batch, K3 never
     expect_launches(launches, {"conv3d_fused": 18 * N_BATCHES,
+                               "conv3d_fused_train": 0,
                                "fused_entropy": N_BATCHES,
                                "sampled_softmax_stats": 0},
                     "deterministic path")
@@ -531,6 +640,7 @@ def aleatoric_path(card: str):
     launches = read_launches()
     # K1 18 times per forward, K3 once per batch, K2 never
     expect_launches(launches, {"conv3d_fused": 18 * ALEATORIC_BATCHES,
+                               "conv3d_fused_train": 0,
                                "fused_entropy": 0,
                                "sampled_softmax_stats": ALEATORIC_BATCHES},
                     "aleatoric path")
@@ -637,9 +747,11 @@ def cli_path(card: str):
     # per aleatoric one
     want_launches = {
         "deterministic": {"conv3d_fused": 18 * n_batches,
+                          "conv3d_fused_train": 0,
                           "fused_entropy": n_batches,
                           "sampled_softmax_stats": 0},
-        "aleatoric": {"conv3d_fused": 18 * n_batches, "fused_entropy": 0,
+        "aleatoric": {"conv3d_fused": 18 * n_batches,
+                      "conv3d_fused_train": 0, "fused_entropy": 0,
                       "sampled_softmax_stats": n_batches}}
     os.makedirs(OUT_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as root:
@@ -710,6 +822,181 @@ def cli_path(card: str):
                     raise AssertionError(f"the {name} CLI disagrees with "
                                          "its scorer on the same batches")
             log(f"CLI {name} vs its scorer: max_abs_err {worst:.3e}")
+
+
+# -- the training CLI ---------------------------------------------------------
+
+TRAIN_IMAGES, TRAIN_TEST_IMAGES, RATERS = 32, 2, 3
+TRAIN_BATCH, TIMED_STEPS = 8, 5
+# K1 per training step: 18 forward convs, and dx for all but the first
+# (the input needs no gradient); K1 per validation forward: 18
+K1_FORWARD, K1_DX = 18, 17
+
+
+def write_case1(root: str) -> None:
+    """A synthetic toy ``Case_1`` (configs/datamodule/case1_config.yaml)
+    under ``root``: TRAIN_IMAGES + TRAIN_TEST_IMAGES 64^3 ``.nii.gz``
+    volumes, a noisy ball each, with RATERS rater masks (the ball at
+    radius r - 1, r, r + 1)."""
+    from values_tpu_torch.core import nifti
+    grid = np.indices((PATCH,) * 3).astype(np.float32)
+    case = os.path.join(root, "Case_1")
+    for split, n, first in (("Tr", TRAIN_IMAGES, 0),
+                            ("Ts", TRAIN_TEST_IMAGES, TRAIN_IMAGES)):
+        for i in range(first, first + n):
+            rs = np.random.RandomState(i)
+            center = rs.uniform(20, 44, 3)[:, None, None, None]
+            dist = np.sqrt(((grid - center) ** 2).sum(0))
+            radius = rs.uniform(8, 16)
+            image = ((dist < radius) + 0.3 * rs.randn(*dist.shape)
+                     ).astype(np.float32)
+            nifti.save(image, os.path.join(case, f"images{split}",
+                                           f"{i:04d}.nii.gz"))
+            for r in range(RATERS):
+                nifti.save((dist < radius + r - 1).astype(np.uint8),
+                           os.path.join(case, f"labels{split}",
+                                        f"{i:04d}_{r:02d}.nii.gz"))
+
+
+def training_overrides(root: str, version: str) -> list:
+    """softmax_config at its published widths; one epoch on the toy set."""
+    return [f"data_input_dir={root}", f"save_dir={root}/exp",
+            f"version={version}", "max_epochs=1"]
+
+
+def run_training_cli(root: str, version: str, extra: list, card: str):
+    """The training CLI's ``main`` once, its launches counted and its
+    epoch line parsed; returns (checkpoint, seconds, launches, losses)."""
+    import io
+    from values_tpu_torch.training.main import main as train_main
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        ckpt = train_main(["--device", "cuda"]
+                          + training_overrides(root, version) + extra)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    text = out.getvalue()
+    epoch_line = [line for line in text.splitlines()
+                  if line.startswith("epoch 0:")][0]
+    losses = {k: float(v) for k, v in
+              (item.split("=") for item in epoch_line.split()[2:5])}
+    log(f"training CLI {version}: {epoch_line}; {seconds:.2f} s "
+        f"(data preparation on the first run included); launches "
+        f"{json.dumps(launches)}; card {card}")
+    if not os.path.exists(ckpt) or not all(np.isfinite(v)
+                                           for v in losses.values()):
+        raise AssertionError(f"training CLI {version}: checkpoint {ckpt} "
+                             f"or losses {losses} missing or not finite")
+    return ckpt, seconds, launches, losses
+
+
+def first_step_against_plain(root: str, card: str):
+    """The f32 CLI run's first step -- the same config, seeded weights
+    and first batch -- through the kernels and through the plain
+    versions (K1b's plain version for every conv): loss and every
+    parameter gradient. Returns the experiment, its state and that
+    batch on the card."""
+    import torch
+    from values_tpu_torch.config import compose, instantiate
+    from values_tpu_torch.models import ensemble_unet3d as ens
+    from values_tpu_torch.training.experiment import Experiment, tree_leaves
+    from values_tpu_torch.training.loops import _device_batch
+    from values_tpu_torch.training.main import DEFAULT_CONFIG_DIR
+    cfg = compose(DEFAULT_CONFIG_DIR, "softmax_config",
+                  training_overrides(root, "check"))
+    dm = instantiate(cfg.datamodule, data_input_dir=root,
+                     batch_size=cfg.batch_size)
+    dm.setup()
+    batch = _device_batch(next(iter(dm.train_dataloader())), "cuda")
+    exp = Experiment(cfg, "cuda")
+    state = exp.init_state(cfg.seed, cfg.datamodule.patch_size)
+    leaves = tree_leaves(state.params)
+    names = [f"{m}/{k}" for m in sorted(state.params)
+             for k in sorted(state.params[m].get("conv", state.params[m]))]
+
+    def loss_and_grads():
+        loss = exp.loss(state.params, batch)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    got_loss, got = loss_and_grads()
+    real = ens.conv3d_fused_train
+    ens.conv3d_fused_train = plain_train_conv
+    try:
+        want_loss, want = loss_and_grads()
+    finally:
+        ens.conv3d_fused_train = real
+    # loss: rtol 1e-5. Gradients, the biases of the convs feeding an
+    # instance norm aside (their true gradient is 0; both sides give
+    # roundoff): all leaves together within 1e-3 of their norm, each leaf
+    # within 1e-2 of its own -- one voxel whose normalized value lies
+    # within rounding of 0 takes the other leaky branch on one side and
+    # moves a deep leaf's gradient by ~1e-3 of its norm
+    pairs = [(n, a, w) for n, a, w in zip(names, got, want)
+             if not (n.startswith("contr_") and n.endswith("bias"))]
+    rel = {n: float((a - w).norm() / w.norm()) for n, a, w in pairs}
+    total = float(torch.sqrt(sum(((a - w) ** 2).sum() for _, a, w in pairs))
+                  / torch.sqrt(sum((w ** 2).sum() for _, _, w in pairs)))
+    worst_name = max(rel, key=rel.get)
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    log(f"first f32 step against the plain path: loss {got_loss:.7f} vs "
+        f"{want_loss:.7f} (rel {loss_rel:.2e}); gradient error {total:.2e} "
+        f"of the norm over {len(pairs)} leaves, largest {rel[worst_name]:.2e}"
+        f" ({worst_name}), {sum(v > 1e-4 for v in rel.values())} leaves "
+        f"above 1e-4; card {card}")
+    if loss_rel > 1e-5 or total > 1e-3 or rel[worst_name] > 1e-2:
+        raise AssertionError("the first training step disagrees with the "
+                             "plain path")
+    return exp, state, batch
+
+
+def training_path(card: str):
+    """The training CLI on softmax_config at its published widths (UNet3D
+    f 8, 64^3 patches, batch 8), f32 and bf16, one epoch each with
+    validation and a checkpoint; each checkpoint scored by the score CLI;
+    each run's launches counted."""
+    import pickle as pkl
+    from values_tpu_torch.inference.score import run_score, score_cli
+    from values_tpu_torch.inference.scoring import score_rows
+    os.makedirs(OUT_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(dir=OUT_DIR, prefix="train_")
+    write_case1(root)
+    runs = {}
+    for version, extra in (("f32", []), ("bf16", ["+precision=bf16"])):
+        runs[version] = run_training_cli(root, version, extra, card)
+    with open(os.path.join(root, "Case_1", "splits.pkl"), "rb") as f:
+        fold = pkl.load(f)[0]
+    steps = -(-len(fold["train"]) // TRAIN_BATCH)
+    n_val = len(fold["val"])
+    want = {"conv3d_fused": (K1_FORWARD + K1_DX) * steps
+            + K1_FORWARD * (n_val + 1),   # + the validation panel
+            "conv3d_fused_train": K1_DX * steps,
+            "fused_entropy": 0, "sampled_softmax_stats": 0}
+    score_batches = -(-n_val // TRAIN_BATCH)
+    for version, (ckpt, _, launches, _) in runs.items():
+        expect_launches(launches, want, f"training CLI {version} ({steps} "
+                        f"steps of 35 K1 launches, 17 of them K1b's dx; "
+                        f"{n_val} validation forwards and 1 panel of 18)")
+        reset_launches()
+        out = os.path.join(root, f"scores_{version}.json")
+        scores = run_score(score_cli([
+            "--checkpoint_paths", ckpt, "-i", root, "--out", out,
+            "--test_split", "val", "--batch_size", str(TRAIN_BATCH),
+            "--device", "cuda"]))
+        expect_launches(read_launches(), {
+            "conv3d_fused": 18 * score_batches, "conv3d_fused_train": 0,
+            "fused_entropy": score_batches, "sampled_softmax_stats": 0},
+            f"score CLI on the {version} checkpoint")
+        if len(scores) != n_val or not all(
+                list(s) == score_rows() and all(np.isfinite(list(s.values())))
+                for s in scores.values()):
+            raise AssertionError(f"scores of the {version} checkpoint: "
+                                 f"{scores}")
+        dice = np.mean([s["dice"] for s in scores.values()])
+        log(f"score CLI on the {version} checkpoint: {len(scores)} val "
+            f"volumes, mean dice {dice:.4f}, all rows finite")
+    return root, runs, steps
 
 
 # -- timings ------------------------------------------------------------------
@@ -908,6 +1195,156 @@ def time_k3(launches, grouped, vols):
                      "strided views, philox"}
 
 
+def time_k1b(launches):
+    """K1b's dx at the training path's largest conv, expand_1_1 (B 8,
+    64^3, G 1, 16 -> 8 channels, leaky epilogue, bf16): the activation
+    fold and K1 on the flipped weight, through the autograd Function
+    with only x needing a gradient; beside its plain version (autograd
+    through conv3d_fused_reference), cuDNN's input gradient
+    (aten.convolution_backward) after the same fold, and, for the
+    record, cuDNN's weight gradient at the same conv (the dW that K1b
+    leaves to the library)."""
+    import torch
+    from values_tpu_torch.ops.kernels.conv3d import conv3d_fused_train
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    b, cin, cout = TRAIN_BATCH, 2 * FILTERS, FILTERS
+    x, weight, bias, _, _ = k1_inputs(gen, torch.bfloat16, b, PATCH, PATCH,
+                                      PATCH, 1, cin, 0, cout, False)
+    dy = torch.randn((b, PATCH, PATCH, PATCH, cout), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    x = x.requires_grad_(True)
+    graphs = {name: fn(x, weight, bias, 1, activation="leaky")
+              for name, fn in (("kernel", conv3d_fused_train),
+                               ("plain", plain_train_conv))}
+
+    def dx(name):
+        return torch.autograd.grad(graphs[name], x, dy, retain_graph=True)[0]
+
+    got, want = dx("kernel").float(), dx("plain").float()
+    err = float((got - want).abs().max())
+    rtol, atol_rel = K1B_TOL["bfloat16"]
+    if bool(((got - want).abs() > atol_rel * float(want.abs().max())
+             + rtol * want.abs()).any()):
+        raise AssertionError(f"K1b dx at expand_1_1: max_abs_err {err}")
+    y = graphs["kernel"].detach()
+    views = dict(x=x.detach().permute(0, 4, 1, 2, 3),
+                 w=weight.permute(4, 3, 0, 1, 2))
+
+    def library(mask):
+        g = torch.where(y > 0, dy, 0.01 * dy).permute(0, 4, 1, 2, 3)
+        return torch.ops.aten.convolution_backward(
+            g, views["x"], views["w"], None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
+            False, [0, 0, 0], 1, mask)
+
+    ms = cuda_ms(lambda: dx("kernel"))
+    plain_ms = cuda_ms(lambda: dx("plain"), reps=5)
+    library_ms = cuda_ms(lambda: library([True, False, False]))
+    dw_library_ms = cuda_ms(lambda: library([False, True, False]))
+    vox = b * PATCH ** 3
+    # read dy and the saved output, write dx; the weight once
+    bytes_moved = 2 * vox * (cout + cout + cin) + 2 * weight.numel()
+    flops = 2 * vox * 27 * cin * cout
+    bound_ms, bound_by = bound(bytes_moved, flops, "bfloat16")
+    return {"name": "conv3d_fused_train", "route": "cuda",
+            "source": "values_tpu_torch/ops/kernels/conv3d.py",
+            "replaces": "values_tpu/ops/pallas/conv3d.py:906",
+            "launches": launches["conv3d_fused_train"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "dw_library_ms": dw_library_ms,
+            "shape": f"dx of expand_1_1 B={b} {PATCH}^3 G=1 Cin={cin} "
+                     f"Cout={cout} bf16, leaky fold + K1 on the flipped "
+                     "weight"}
+
+
+def time_training(exp32, state32, batch, root: str, card: str):
+    """Milliseconds per training step and volumes trained per second at
+    batch 8, f32 (with TF32 off and on) and bf16: host clock around
+    TIMED_STEPS steps ending in a synchronize, after 2 warm-up steps, the
+    batch already on the card; peak device memory of a step; and a
+    profile of one step of each, split into K1 forward (from a profile of
+    the forward alone), K1 dx, the dW library call
+    (aten::convolution_backward), the rest (norms, losses, optimizer,
+    casts) and idle."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from values_tpu_torch.config import compose
+    from values_tpu_torch.training.experiment import Experiment
+    from values_tpu_torch.training.main import DEFAULT_CONFIG_DIR
+    cfg16 = compose(DEFAULT_CONFIG_DIR, "softmax_config",
+                    training_overrides(root, "timing") + ["+precision=bf16"])
+    exp16 = Experiment(cfg16, "cuda")
+    # f32 with TF32 off (this script's setting, exact float32) and on
+    # (PyTorch's default for cuDNN convolutions, so the dW library call's)
+    runs = {"f32": (exp32, state32, False),
+            "f32, TF32 dW": (exp32, state32, True),
+            "bf16": (exp16, exp16.init_state(cfg16.seed, PATCH), False)}
+    result = {}
+    for name, (exp, state, tf32) in runs.items():
+        torch.backends.cudnn.allow_tf32 = tf32
+        for _ in range(2):
+            exp.train_step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            _, loss = exp.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if not bool(torch.isfinite(loss)):
+            raise AssertionError(f"{name} training loss {loss}")
+
+        def device_times(fn):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            table = prof.key_averages()
+            kernels = [e for e in table if "CUDA" in str(e.device_type)
+                       and e.self_device_time_total > 0]
+            k1 = sum(e.self_device_time_total for e in kernels
+                     if "conv3d_fused" in e.key) / 1e3
+            busy = sum(e.self_device_time_total for e in kernels) / 1e3
+            dw = sum(e.device_time_total for e in table
+                     if e.key == "aten::convolution_backward") / 1e3
+            return table, wall, busy, k1, dw
+
+        def forward():
+            with torch.no_grad():
+                exp.loss(state.params, batch)
+
+        _, _, _, k1_fwd, _ = device_times(forward)
+        table, wall, busy, k1, dw = device_times(
+            lambda: exp.train_step(state, batch))
+        torch.backends.cudnn.allow_tf32 = False
+        tag = name.replace(", TF32 dW", "_tf32")
+        with open(os.path.join(OUT_DIR, f"profile_train_step_{tag}.txt"),
+                  "w") as fh:
+            fh.write(table.table(sort_by="self_device_time_total",
+                                 row_limit=40))
+        result[name] = {"step_ms": step_ms,
+                        "volumes_per_s": TRAIN_BATCH / step_ms * 1e3,
+                        "peak_gb": peak_gb, "wall_ms": wall,
+                        "busy_ms": busy, "k1_forward_ms": k1_fwd,
+                        "k1_dx_ms": k1 - k1_fwd, "dw_ms": dw,
+                        "other_ms": busy - k1 - dw}
+        r = result[name]
+        if not busy:
+            log(f"training step {name}: no device time recorded (profile "
+                "not measured)")
+        log(f"training step {name}, batch {TRAIN_BATCH} x {PATCH}^3: "
+            f"{step_ms:.2f} ms, {r['volumes_per_s']:.2f} volumes/s, peak "
+            f"{peak_gb:.2f} GB; profile of one step (profiler on): device "
+            f"{busy:.2f} of {wall:.2f} ms wall, idle share "
+            f"{1 - busy / wall:.3f}; K1 forward {k1_fwd:.2f} ms, K1 dx "
+            f"{k1 - k1_fwd:.2f} ms, dW (cuDNN) {dw:.2f} ms, the rest "
+            f"{busy - k1 - dw:.2f} ms; card {card}")
+    return result
+
+
 def time_k1_layers(grouped, vols):
     """K1 at each of the path's 18 convs, in one bf16 forward at the
     path's batch: CUDA events around each call, beside each conv's bound.
@@ -1043,14 +1480,21 @@ def main() -> int:
         check_k2()
     with phase("K3 check", smi):
         check_k3()
+    with phase("K1b check", smi):
+        check_k1b()
     with phase("deterministic path", smi):
         launches, vps, (vols, gt), grouped = main_path(smi)
     with phase("aleatoric path", smi):
         a_launches, a_vps, (a_vols, a_gt), a_grouped = aleatoric_path(smi)
     with phase("score CLI", smi):
         cli_path(smi)
+    with phase("training CLI", smi):
+        train_root, train_runs, _ = training_path(smi)
+        exp32, state32, train_batch = first_step_against_plain(train_root,
+                                                               smi)
     with phase("kernel timings", smi):
         kernels = [time_k1(launches, vols.shape[0]),
+                   time_k1b(train_runs["f32"][2]),
                    time_k2(launches, grouped, vols),
                    time_k3(a_launches, a_grouped, a_vols)]
         for k in kernels:
@@ -1059,10 +1503,17 @@ def main() -> int:
                      f"{k['operations_as_written'] / 1e9:.2f} G as the "
                      f"kernel is written ({k['as_written_ms']:.3f} ms at "
                      "the f32 peak)" if "loop_ms" in k else "")
+            if "dw_library_ms" in k:
+                extra = (f"; dW at the same conv (cuDNN weight gradient) "
+                         f"{k['dw_library_ms']:.3f} ms")
             log(f"{k['name']} [{k['shape']}]: {k['ms']:.3f} ms, bound "
                 f"{k['bound_ms']:.3f} ms ({k['bound_by']}), plain "
                 f"{k['plain_ms']:.3f} ms, library {k['library_ms']} ms"
                 f"{extra}; launches {k['launches']}; card {smi}")
+    with phase("training timings and profiles", smi):
+        training = time_training(exp32, state32, train_batch, train_root,
+                                 smi)
+        shutil.rmtree(train_root)
     with phase("throughput and profiles", smi):
         for b in (16, 128):
             throughput(grouped, smi, b)
@@ -1078,7 +1529,10 @@ def main() -> int:
                       "profile_aleatoric_path.txt")
     log(f"headline: {vps:.2f} volumes/s deterministic, {a_vps:.2f} "
         f"volumes/s aleatoric ({N_ALEATORIC} samples) (ensemble-{N_MEMBERS},"
-        f" {PATCH}^3, bf16, batch {BATCH}); card {smi}")
+        f" {PATCH}^3, bf16, batch {BATCH}); training "
+        f"{training['f32']['volumes_per_s']:.2f} volumes/s f32, "
+        f"{training['bf16']['volumes_per_s']:.2f} bf16 (UNet3D, "
+        f"{PATCH}^3, batch {TRAIN_BATCH}); card {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     # the run drives one card, whatever else the machine shows
     print(json.dumps({"ok": True, "device": {

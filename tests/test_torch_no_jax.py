@@ -1,6 +1,6 @@
 """The port stands alone: no module of values_tpu_torch, nor chip_smoke,
-imports jax or the JAX package, and its entry points refuse to run on
-the CPU unless asked to."""
+imports jax or the JAX package (nor yaml, until a config is composed),
+and its entry points refuse to run on the CPU unless asked to."""
 import ast
 import os
 import pathlib
@@ -27,10 +27,11 @@ def _module_names():
 
 def test_every_module_imports_with_jax_blocked():
     """Each module imports in a fresh interpreter where ``import jax``
-    fails; chip_smoke is imported, not run."""
+    and ``import yaml`` fail; chip_smoke is imported, not run."""
     code = ("import sys, importlib\n"
             "assert 'jax' not in sys.modules\n"
             "sys.modules['jax'] = None\n"
+            "sys.modules['yaml'] = None\n"
             f"for name in {_module_names()!r}:\n"
             "    importlib.import_module(name)\n"
             "assert not any(m == 'values_tpu' or m.startswith('values_tpu.')"
@@ -66,6 +67,7 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked_for(tmp_path):
     from values_tpu_torch.inference.score import run_score, score_cli
     from values_tpu_torch.inference.scoring import (make_aleatoric_scorer,
                                                     make_scorer)
+    from values_tpu_torch.training.main import main as train_main
     make_scorer(2, 16, device="cpu")
     make_aleatoric_scorer(2, 16, device="cpu")
     assert resolve_device("cpu") == torch.device("cpu")
@@ -83,3 +85,7 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked_for(tmp_path):
         # the CLI refuses before it reads a checkpoint
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run_score(args)
+        # the training CLI refuses before it touches the data
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_main([f"data_input_dir={tmp_path / 'none'}",
+                        f"save_dir={tmp_path / 'exp'}"])

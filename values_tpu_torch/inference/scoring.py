@@ -26,7 +26,8 @@ from typing import (Callable, List, Mapping, Optional, Sequence, Tuple,
 import torch
 
 from ..core.device import resolve_device
-from ..models.ensemble_unet3d import cast_weights, grouped_forward_fused
+from ..models.ensemble_unet3d import (PATCH_MULTIPLE, cast_weights,
+                                      grouped_forward_fused)
 from ..ops.aggregation import UNC_KEYS, aggregate_all_maps
 from ..ops.kernels.entropy import fused_entropy
 from ..ops.kernels.sampling import BITS, sampled_softmax_stats
@@ -34,8 +35,6 @@ from ..ops.metrics import mean_rater_dice
 from ..ops.uncertainty import _guarded_plogp
 
 AGG_KEYS = ("patch_level", "image_level", "threshold")
-# four 2x pools: every spatial dim must halve cleanly down to the center
-PATCH_MULTIPLE = 16
 
 
 def score_rows() -> List[str]:

@@ -28,6 +28,13 @@ matrix products, as XLA computes them outside Pallas in the JAX package.
 Tensors are plain NDHWC; none of the JAX package's lane packing is
 carried over. Weights are the grouped layout of
 :func:`values_tpu_torch.models.torch_import.group_member_state_dicts`.
+
+The training forward (:func:`grouped_forward_train`, :func:`train_forward`)
+is the counterpart of ``grouped_forward_packed(trainable=True)`` (:471-590)
+and ``packed_train_forward`` (:942-989): every 3x3x3 conv goes through
+K1b (:func:`~values_tpu_torch.ops.kernels.conv3d.conv3d_fused_train`),
+and the norms, pools, concats and transposed convs stay ordinary
+differentiable torch ops.
 """
 from __future__ import annotations
 
@@ -35,10 +42,14 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 
-from ..ops.kernels.conv3d import conv3d_fused
+from ..ops.kernels.conv3d import (concat_groups, conv3d_fused,
+                                  conv3d_fused_train)
+from .torch_import import TRANSPOSED
 
 Maps = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 NORM_EPS = 1e-5
+# four 2x pools: every spatial dim must halve cleanly down to the center
+PATCH_MULTIPLE = 16
 
 
 def norm_maps(stats: Tuple[torch.Tensor, torch.Tensor], n_vox: int,
@@ -163,6 +174,130 @@ def grouped_forward_fused(weights: Mapping[str, Mapping[str, torch.Tensor]],
 
     head = weights.get("final_aleatoric") or weights["final"]
     return head_1x1(e, head["kernel"], head["bias"], members)
+
+
+def instance_norm_from_stats(x: torch.Tensor,
+                             stats: Tuple[torch.Tensor, torch.Tensor]
+                             ) -> torch.Tensor:
+    """Affine-free instance norm of NDHWC ``x`` whose per-(item, channel)
+    (sum, sumsq) came from the producing conv's epilogue
+    (``_instance_norm_from_stats``, :448-468): normalized in the
+    statistics' type (float32; float64 for a float64 run), returned in
+    x's type. Gradients reach the statistics too."""
+    n_vox = x.shape[1] * x.shape[2] * x.shape[3]
+    ssum, ssq = stats
+    mean = ssum / n_vox
+    var = torch.clamp(ssq / n_vox - mean * mean, min=0.0)
+    inv = torch.rsqrt(var + NORM_EPS)
+    scale = inv[:, None, None, None, :]
+    shift = (mean * inv)[:, None, None, None, :]
+    return (x.to(ssum.dtype) * scale - shift).to(x.dtype)
+
+
+def grouped_forward_train(weights: Mapping[str, Mapping[str, torch.Tensor]],
+                          x: torch.Tensor, members: int,
+                          apply_final: bool = True) -> torch.Tensor:
+    """The differentiable grouped forward, without dropout.
+
+    Args:
+        weights: grouped weights in x's dtype (``{module: {"kernel",
+            "bias"}}``, the layout of :func:`grouped_forward_fused`).
+        x: (B, D, H, W, 1), tiled across members, or (B, D, H, W, M).
+        members: the channel-group count M.
+    Returns logits (B, D, H, W, M, C), or the pre-head features (B, D,
+    H, W, M, F) with ``apply_final=False``. Norm blocks take their
+    statistics from the conv's epilogue; the center and expand convs fuse
+    their activation into it.
+    """
+    if x.shape[-1] == 1:
+        x = x.expand(*x.shape[:-1], members)
+    x = x.contiguous()
+
+    def block(v, name, norm=True, act="leaky"):
+        prm = weights[name]
+        if not norm:
+            return conv3d_fused_train(v, prm["kernel"], prm["bias"], members,
+                                      activation=act)
+        y, stats = conv3d_fused_train(v, prm["kernel"], prm["bias"],
+                                      members, emit_stats=True)
+        v = instance_norm_from_stats(y, stats)
+        return (torch.nn.functional.leaky_relu(v, 0.01) if act == "leaky"
+                else torch.relu(v))
+
+    def up(v, name):
+        prm = weights[name]
+        return (transpose_conv_k2s2(v, prm["kernel"])
+                + prm["bias"].reshape(-1).to(v.dtype))
+
+    skips = []
+    v = x
+    for lvl in (1, 2, 3, 4):
+        v = block(block(v, f"contr_{lvl}_1"), f"contr_{lvl}_2")
+        skips.append(v)
+        v = max_pool_2x(v)
+    c = block(v, "center_conv1", norm=False, act="relu")
+    c = block(c, "center_conv2", norm=False, act="relu")
+    e = torch.relu(up(c, "center_up"))
+    for lvl in (4, 3, 2, 1):
+        e = concat_groups(e, skips.pop(), members)
+        e = block(e, f"expand_{lvl}_1", norm=False)
+        e = block(e, f"expand_{lvl}_2", norm=False)
+        if lvl > 1:
+            e = up(e, f"upscale{lvl}")
+    if not apply_final:
+        return e.reshape(*e.shape[:-1], members, -1)
+    head = weights.get("final_aleatoric") or weights["final"]
+    return head_1x1(e, head["kernel"], head["bias"], members)
+
+
+def single_member_tree(params: Mapping[str, Mapping]) -> Dict[str, Dict]:
+    """A flax-layout UNet3D parameter tree as grouped weights at M=1
+    (``_single_member_tree``, :927-939): conv blocks lose their ``conv``
+    level, the transposed convs gain a leading member axis. Views, so
+    gradients flow back to ``params``."""
+    out = {}
+    for name, leaves in params.items():
+        leaves = leaves.get("conv", leaves)
+        if name in TRANSPOSED:
+            out[name] = {"kernel": leaves["kernel"][None],
+                         "bias": leaves["bias"][None]}
+        else:
+            out[name] = dict(leaves)
+    return out
+
+
+def _split_head(out: torch.Tensor, params: Mapping, apply_final: bool):
+    """(B, D, H, W, 1, C) -> (B, D, H, W, C), or (mu, s) for the
+    aleatoric head."""
+    flat = out.reshape(*out.shape[:4], out.shape[-1])
+    if apply_final and "final_aleatoric" in params:
+        mu, s = torch.chunk(flat, 2, dim=-1)
+        return mu, s
+    return flat
+
+
+def train_forward(params: Mapping[str, Mapping], x: torch.Tensor,
+                  apply_final: bool = True):
+    """The differentiable single-model UNet3D forward of the training
+    step (``packed_train_forward``, :942-989): flax-layout ``params`` (in
+    x's dtype) and an NDHWC batch give logits (B, D, H, W, C), ``(mu, s)``
+    with the aleatoric head, or the pre-head features with
+    ``apply_final=False``."""
+    out = grouped_forward_train(single_member_tree(params), x, 1,
+                                apply_final=apply_final)
+    return _split_head(out, params, apply_final)
+
+
+def eval_forward(params: Mapping[str, Mapping], x: torch.Tensor):
+    """The gradient-free single-model forward of the validation step
+    (``_packed_val_apply``, experiment.py:309-330): the fused inference
+    pipeline at M=1. Returns what :func:`train_forward` returns."""
+    weights = {name: {leaf: t.detach().to(x.dtype).contiguous()
+                      for leaf, t in leaves.items()}
+               for name, leaves in single_member_tree(params).items()}
+    with torch.no_grad():
+        out = grouped_forward_fused(weights, x, 1)
+    return _split_head(out, params, True)
 
 
 def cast_weights(weights: Mapping[str, Mapping[str, torch.Tensor]],

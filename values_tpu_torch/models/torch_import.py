@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 _CENTER_MAP = {"0": "center_conv1", "2": "center_conv2", "4": "center_up"}
-_TRANSPOSED = ("center_up", "upscale4", "upscale3", "upscale2")
+TRANSPOSED = ("center_up", "upscale4", "upscale3", "upscale2")
 
 _BLOCK_RE = re.compile(r"^(contr_\d_\d|expand_\d_\d)\.0\.(weight|bias)$")
 _CENTER_RE = re.compile(r"^center\.(\d)\.(weight|bias)$")
@@ -40,6 +40,38 @@ def strip_model_prefix(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     state_dicts."""
     return {(k[len("model."):] if k.startswith("model.") else k): v
             for k, v in state_dict.items()}
+
+
+_FLAX_PLAIN_RE = re.compile(
+    r"^(final|final_aleatoric|output_reconstruction_map|mean_conv|"
+    r"log_cov_diag_conv|cov_factor_conv|upscale\d)\.(weight|bias)$")
+
+
+def unet3d_params_from_torch(state_dict: Mapping[str, Any],
+                             dtype: Any = np.float32) -> Dict[str, Any]:
+    """A (possibly ``model.``-prefixed) UNet3D state_dict -> the flax
+    ``{"params": ...}`` variables of numpy arrays (the port's copy of
+    ``values_tpu/models/torch_import.py::unet3d_params_from_torch``,
+    :56-104): conv blocks under ``{"conv": {"kernel", "bias"}}``, kernels
+    DHWIO."""
+    params: Dict[str, Any] = {}
+    for key, tensor in strip_model_prefix(state_dict).items():
+        arr = (tensor.detach().cpu().numpy() if hasattr(tensor, "detach")
+               else np.asarray(tensor))
+        block = _BLOCK_RE.match(key)
+        m = block or _CENTER_RE.match(key) or _FLAX_PLAIN_RE.match(key)
+        if not m:
+            raise KeyError(f"Unrecognized UNet3D state_dict key: {key}")
+        module, leaf = m.groups()
+        module = _CENTER_MAP.get(module, module)
+        if leaf == "weight":
+            arr = np.transpose(arr, (2, 3, 4, 0, 1) if module in TRANSPOSED
+                               else (2, 3, 4, 1, 0))
+        node = params.setdefault(module, {})
+        if block:
+            node = node.setdefault("conv", {})
+        node["kernel" if leaf == "weight" else "bias"] = arr.astype(dtype)
+    return {"params": params}
 
 
 def unet3d_params_to_torch(variables: Mapping[str, Any]
@@ -127,7 +159,7 @@ def _member_kernels(state: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
                 raise KeyError(f"unrecognized UNet3D state_dict key: {key}")
             module, leaf = _CENTER_MAP[m.group(1)], m.group(2)
         if leaf == "weight":
-            perm = ((2, 3, 4, 0, 1) if module in _TRANSPOSED
+            perm = ((2, 3, 4, 0, 1) if module in TRANSPOSED
                     else (2, 3, 4, 1, 0))
             out.setdefault(module, {})["kernel"] = value.permute(*perm)
         else:
@@ -145,7 +177,7 @@ def group_member_state_dicts(state_dicts: List[Mapping[str, Any]],
     for name in members[0]:
         kernels = [m[name]["kernel"] for m in members]
         biases = [m[name]["bias"] for m in members]
-        if name in _TRANSPOSED:
+        if name in TRANSPOSED:
             kernel, bias = torch.stack(kernels), torch.stack(biases)
         else:
             kernel, bias = torch.cat(kernels, -1), torch.cat(biases, -1)

@@ -13,8 +13,9 @@ levels; center Conv -> ReLU -> Conv -> ReLU -> ConvTranspose(2, 2) ->
 ReLU; decoder center-crop skip concat, two Conv -> LeakyReLU blocks (no
 norm) and a ConvTranspose up per level; 1x1x1 ``final`` head, or
 ``final_aleatoric`` emitting (mu, s). The MC-dropout variant is not
-ported yet. Input and output are channels-last NDHWC, as in the JAX
-package.
+ported yet and raises. Input and output are channels-last NDHWC, as in
+the JAX package. ``kernel_size`` and ``do_dropout`` are the config's
+keys; only 3 and False are taken.
 """
 from __future__ import annotations
 
@@ -52,8 +53,16 @@ class UNet3D(nn.Module):
 
     def __init__(self, num_classes: int, in_channels: int = 1,
                  initial_filter_size: int = 8, do_instancenorm: bool = True,
-                 aleatoric_loss: bool = False):
+                 aleatoric_loss: bool = False, kernel_size: int = 3,
+                 do_dropout: bool = False):
         super().__init__()
+        if kernel_size != 3:
+            raise ValueError(f"kernel_size={kernel_size}: the UNet3D and "
+                             "its kernels are 3x3x3")
+        if do_dropout:
+            raise NotImplementedError(
+                "the MC-dropout UNet3D is not ported yet (ROADMAP.md, "
+                "Queue 1: 'The MC-dropout, TTA and SSN scorers')")
         f = initial_filter_size
         norm = do_instancenorm
         self.aleatoric_loss = aleatoric_loss

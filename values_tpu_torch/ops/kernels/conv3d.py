@@ -20,6 +20,13 @@ The contract, per group g of ``groups`` (``conv3d_fused_reference``):
 
 :func:`conv3d_fused` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors; it never falls back from one to the other.
+
+K1b, the training form (:func:`conv3d_fused_train`, the autograd
+:class:`Conv3dFusedFn`), is the port of the custom VJP around the TPU
+kernel (``conv3d.py::_banded_packed_ad`` and ``_banded_packed_ad_stats``,
+:888-1208). Its forward is K1 without ``x2`` or prologue; its backward
+runs K1 again for dx. Autograd through :func:`conv3d_fused_reference` is
+its plain version.
 """
 from __future__ import annotations
 
@@ -166,6 +173,120 @@ def conv3d_fused(x: torch.Tensor, weight: torch.Tensor,
 
 
 conv3d_fused.launches = 0
+
+
+_SLOPES = {"leaky": 0.01, "relu": 0.0}
+
+
+def flip_transpose_weight(weight: torch.Tensor, groups: int) -> torch.Tensor:
+    """The dx kernel of a grouped SAME conv: (3, 3, 3, Cin, G*Cout) ->
+    (3, 3, 3, Cout, G*Cin), flipped in space and transposed within each
+    group (``conv3d.py:946-948``), contiguous, in the weight's type."""
+    cin, cout = weight.shape[3], weight.shape[4] // groups
+    w = weight.flip(0, 1, 2).reshape(3, 3, 3, cin, groups, cout)
+    return w.permute(0, 1, 2, 5, 4, 3).reshape(3, 3, 3, cout,
+                                               groups * cin).contiguous()
+
+
+class Conv3dFusedFn(torch.autograd.Function):
+    """K1b: K1 with a backward (``_banded_packed_ad*``'s custom VJP).
+
+    Forward: K1 on x, weight, bias, with an epilogue activation or the
+    (sum, sumsq) statistics of its output. Saved: x, the weight, and the
+    output when there is an activation or statistics. Backward:
+
+    1. the activation derivative from the saved output (leaky and ReLU
+       keep the sign, so y > 0 iff the pre-activation is), or the stats
+       cotangents folded in as ``dy + ds1 + 2 y ds2`` in float32 and
+       rounded to dy's type, as the JAX package does (in bfloat16 a ds1
+       below half an ulp of dy is lost: ROADMAP.md fault R5);
+    2. dx: K1 on dy with the flipped, group-transposed weight, only where
+       x needs a gradient;
+    3. dW: the backward-weights contraction, a library call
+       (``aten.convolution_backward``) on channels-last views of the
+       NDHWC tensors, as the JAX package leaves it to XLA (:981-992);
+       its float32 precision follows ``torch.backends.cudnn.allow_tf32``
+       like any PyTorch convolution;
+    4. db: Σdy in float32.
+
+    On the card dx costs what a K1 forward of the same shape costs (K1
+    is bound by its float32 FMA rate, far from the byte bound), and dW
+    is whatever cuDNN picks for the shape and type.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups, activation, emit_stats):
+        if emit_stats and activation != "none":
+            raise ValueError("emit_stats takes the pre-activation output; "
+                             "use activation='none' with it")
+        res = conv3d_fused(x, weight, bias, groups, activation=activation,
+                           emit_stats=emit_stats)
+        out, stats = res if emit_stats else (res, None)
+        ctx.groups, ctx.activation, ctx.emit_stats = (groups, activation,
+                                                      emit_stats)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        keep_out = activation != "none" or emit_stats
+        ctx.save_for_backward(x, weight, out if keep_out else None)
+        ctx.set_materialize_grads(False)
+        if emit_stats:
+            return out, stats[0], stats[1]
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, ds1=None, ds2=None):
+        x, weight, y = ctx.saved_tensors
+        if dy is None and ds1 is None and ds2 is None:
+            return None, None, None, None, None, None
+        if dy is None:  # only the statistics were used; y was saved
+            dy = torch.zeros_like(y)
+        # float32 sums (float64 for a float64 run, as the plain version)
+        acc = torch.float64 if dy.dtype == torch.float64 else torch.float32
+        if ctx.emit_stats and (ds1 is not None or ds2 is not None):
+            g = dy.to(acc)
+            if ds1 is not None:
+                g = g + ds1[:, None, None, None, :]
+            if ds2 is not None:
+                g = g + 2.0 * y.to(acc) * ds2[:, None, None, None, :]
+            dy = g.to(dy.dtype)
+        if ctx.activation != "none":
+            dy = torch.where(y > 0, dy, _SLOPES[ctx.activation] * dy)
+        dy = dy.contiguous()
+        groups = ctx.groups
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3d_fused(dy, flip_transpose_weight(weight, groups),
+                              None, groups)
+            if dy.device.type == "cuda":
+                conv3d_fused_train.launches += 1
+        if ctx.needs_input_grad[1]:
+            # NDHWC -> (N, C, D, H, W) views in channels-last-3d memory
+            _, dw, _ = torch.ops.aten.convolution_backward(
+                dy.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3),
+                weight.permute(4, 3, 0, 1, 2), None, [1, 1, 1], [1, 1, 1],
+                [1, 1, 1], False, [0, 0, 0], groups, [False, True, False])
+            dw = dw.permute(2, 3, 4, 1, 0).contiguous()
+        if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
+            db = dy.to(acc).sum(dim=(0, 1, 2, 3)).to(ctx.bias_dtype)
+        return dx, dw, db, None, None, None
+
+
+def conv3d_fused_train(x: torch.Tensor, weight: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None, groups: int = 1,
+                       activation: str = "none", emit_stats: bool = False):
+    """K1b: the differentiable K1. x (B, D, H, W, G*Cin), weight (3, 3, 3,
+    Cin, G*Cout) in x's type, bias (G*Cout,) or None. Returns ``out``, or
+    ``(out, (sum, sumsq))`` with ``emit_stats`` (then activation must be
+    "none"); gradients flow through all of them. On CUDA tensors the
+    backward launches K1 for dx and counts it in ``launches``; on CPU
+    tensors both directions run K1's plain version."""
+    res = Conv3dFusedFn.apply(x, weight, bias, groups, activation,
+                              emit_stats)
+    if emit_stats:
+        return res[0], (res[1], res[2])
+    return res
+
+
+conv3d_fused_train.launches = 0
 
 
 def load_kernel() -> ctypes.CDLL:

@@ -1,9 +1,10 @@
-"""Micro Dice with torchmetrics' deleted-column ``ignore_index``.
+"""Micro Dice with torchmetrics' deleted-column ``ignore_index``, and NLL.
 
-Counterpart of ``values_tpu/ops/metrics.py:41-66`` and of the rater mean
-in ``values_tpu/inference/scoring.py:94-107`` (reference: test_3D.py:250-
-281): one-hot both label maps, delete the ``ignore_index`` column, then
-``2 tp / (2 tp + fp + fn)`` over everything, 0 where the denominator is 0.
+Counterpart of ``values_tpu/ops/metrics.py:41-74`` and :154-161, and of
+the rater mean in ``values_tpu/inference/scoring.py:94-107`` (reference:
+test_3D.py:250-281): one-hot both label maps, delete the ``ignore_index``
+column, then ``2 tp / (2 tp + fp + fn)`` over everything, 0 where the
+denominator is 0.
 """
 from __future__ import annotations
 
@@ -42,6 +43,28 @@ def dice_from_stats(tp: torch.Tensor, fp: torch.Tensor,
     denom = 2.0 * tp + fp + fn
     return torch.where(denom > 0, 2.0 * tp / torch.clamp(denom, min=1.0),
                        torch.zeros_like(denom))
+
+
+def dice_score(preds: torch.Tensor, target: torch.Tensor,
+               ignore_index: Optional[int] = None) -> torch.Tensor:
+    """Micro Dice over everything (``values_tpu/ops/metrics.py:67-74``).
+    ``preds`` are (B, C, ...) float scores, reduced by an argmax over C,
+    or integer labels."""
+    if preds.is_floating_point():
+        preds = torch.argmax(preds, dim=1)
+    return dice_from_stats(*dice_stats(preds, target, ignore_index))
+
+
+def select_class(values: torch.Tensor, target: torch.Tensor
+                 ) -> torch.Tensor:
+    """``values[b, target[b, ...], ...]`` of (B, C, ...) values."""
+    return torch.gather(values, 1, target.long().unsqueeze(1)).squeeze(1)
+
+
+def nll_loss(log_probs: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean negative log likelihood of (B, C, ...) log-probabilities at
+    (B, ...) integer targets (``values_tpu/ops/metrics.py:154-161``)."""
+    return -torch.mean(select_class(log_probs, target))
 
 
 def mean_rater_dice(seg: torch.Tensor, gt: torch.Tensor,

@@ -1,0 +1,203 @@
+"""The fit loop: epochs over the host pipeline feeding the train step.
+
+The port's counterpart of ``values_tpu/training/loops.py`` (reference:
+uncertainty_modeling/main.py:33-88), on one device: datamodule
+prepare/setup, per-epoch training and validation, scalar logging, the
+learning-rate schedule (polynomial per step, plateau per epoch), and
+self-describing checkpoints under
+``save_dir/<exp_name>/<version>/checkpoints/``. Data-parallel training
+(``devices``/``gpus`` > 1, ``dcn_granules``) is ROADMAP.md Queue 1's
+``torch.distributed`` item and raises.
+"""
+from __future__ import annotations
+
+import os
+import time
+import warnings
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config, instantiate
+from ..core.device import resolve_device
+from ..core.seed import set_seed
+from . import optim
+from .checkpoint import (TORCH_OPTIMIZER_KEY, CheckpointRetention,
+                         load_checkpoint, to_torch_tree)
+from .experiment import Experiment
+from .tb_logging import TensorBoardLogger
+
+
+def resolve_device_count(value) -> int:
+    """A ``devices`` / reference ``gpus`` config value: an int, a numeric
+    string (the reference writes ``gpus: '1'``), or "all"/-1 for every
+    visible card."""
+    if value is None:
+        return 1
+    if str(value).strip().lower() in ("all", "-1"):
+        return torch.cuda.device_count()
+    return max(1, int(value))
+
+
+def _device_batch(batch: Dict, device: torch.device) -> Dict:
+    out = {"data": torch.from_numpy(np.asarray(batch["data"])).to(device)}
+    if "seg" in batch:
+        out["seg"] = torch.from_numpy(np.asarray(batch["seg"])).to(device)
+    return out
+
+
+def _log_val_image(logger, experiment, params, batch, step: int) -> None:
+    """One validation panel (input / ground truth / prediction of the
+    central slice), as the reference's TensorBoard image grids
+    (lightning_experiment.py:332-372). Best effort: a failure warns once
+    and never stops training."""
+    try:
+        data = batch["data"][:1]
+        out = experiment.eval_apply(params, data)
+        if isinstance(out, tuple):
+            out = out[0]
+        pred = torch.argmax(out, dim=-1)[0].cpu().numpy()
+        img = data[0].cpu().numpy()
+        mid = img.shape[0] // 2
+        img2d, pred2d = img[mid, ..., 0], pred[mid]
+        seg2d = (batch["seg"][0][mid].cpu().numpy() if "seg" in batch
+                 else np.zeros_like(pred2d))
+
+        def norm(x):
+            x = x.astype(np.float32)
+            lo, hi = x.min(), x.max()
+            return (x - lo) / (hi - lo + 1e-8)
+
+        panel = np.concatenate([norm(img2d), norm(seg2d), norm(pred2d)],
+                               axis=1)[..., None]
+        logger.log_image("validation/example", np.repeat(panel, 3, axis=-1),
+                         step)
+    except Exception as exc:  # a logging boundary: warn, keep training
+        if not getattr(_log_val_image, "_warned", False):
+            _log_val_image._warned = True
+            warnings.warn(f"validation image logging failed: {exc!r} "
+                          "(further failures suppressed)")
+
+
+def fit(cfg: Config, max_steps_override: Optional[int] = None,
+        resume_from: Optional[str] = None, device=None) -> str:
+    """Train per the config on ``device`` (default: the CUDA card);
+    returns the final checkpoint's path. ``resume_from``: a port
+    checkpoint whose parameters, optimizer state, epoch and step are
+    restored (a JAX checkpoint's optax state is not: the optimizer
+    starts afresh)."""
+    device = resolve_device(device)
+    seed = int(cfg.get("seed", 123))
+    set_seed(seed)
+    if "DATASET_LOCATION" in os.environ:
+        cfg["data_input_dir"] = os.environ["DATASET_LOCATION"]
+    if "EXPERIMENT_LOCATION" in os.environ:
+        cfg["save_dir"] = os.environ["EXPERIMENT_LOCATION"]
+    if "LSB_JOBID" in os.environ and not cfg.get("version"):
+        cfg["version"] = os.environ["LSB_JOBID"]
+    if "AUGMENTATIONS" in cfg:
+        raise NotImplementedError("2D training is not ported yet "
+                                  "(ROADMAP.md, Queue 1: '2D')")
+    n_devices = resolve_device_count(cfg.get("devices", cfg.get("gpus")))
+    if n_devices > 1 or int(cfg.get("dcn_granules", 0) or 0) > 1:
+        raise NotImplementedError(
+            f"data-parallel training over {n_devices} devices is not "
+            "ported yet (ROADMAP.md, Queue 1: 'torch.distributed')")
+
+    logger_cfg = cfg.get("logger")
+    if logger_cfg:
+        logger = instantiate(dict(logger_cfg, version=cfg.get("version")))
+    else:
+        logger = TensorBoardLogger(cfg.get("save_dir", "."),
+                                   cfg.get("exp_name", "default"),
+                                   version=cfg.get("version"))
+    if not cfg.get("version"):
+        cfg["version"] = logger.version
+
+    datamodule = instantiate(
+        cfg.datamodule, data_input_dir=cfg.get("data_input_dir"),
+        batch_size=cfg.get("batch_size",
+                           cfg.datamodule.get("batch_size", 8)))
+    datamodule.prepare_data()
+    datamodule.setup()
+
+    experiment = Experiment(cfg, device)
+    retention = CheckpointRetention(
+        os.path.join(logger.log_dir, "checkpoints"),
+        save_top_k=int(cfg.get("save_top_k", 0) or 0),
+        every_n_epochs=int(cfg.get("checkpoint_every_n_epochs", 0) or 0),
+        monitor="val_loss", fmt=str(cfg.get("checkpoint_format", "pickle")))
+    state = experiment.init_state(
+        seed, int(cfg.select("datamodule.patch_size", 64)))
+    start_epoch = global_step = 0
+    if resume_from:
+        payload = load_checkpoint(resume_from)
+        state = experiment.state_from_variables(payload["state_dict"])
+        if payload.get(TORCH_OPTIMIZER_KEY) is not None:
+            state.optimizer.load_state_dict(
+                to_torch_tree(payload[TORCH_OPTIMIZER_KEY]))
+        global_step = state.step = int(payload.get("global_step", 0))
+        start_epoch = int(payload.get("epoch", -1)) + 1
+        print(f"Resumed from {resume_from} at epoch {start_epoch}, "
+              f"step {global_step}")
+    # the aleatoric objective's normals
+    generator = torch.Generator(device=device).manual_seed(seed)
+
+    max_epochs = int(cfg.get("max_epochs", 1))
+    train_loader = datamodule.train_dataloader()
+    val_loader = datamodule.val_dataloader()
+    max_steps = max_steps_override or len(train_loader) * max_epochs
+    schedule = experiment.lr_schedule
+    if schedule.kind == "polynomial" and schedule.total_iters <= 0:
+        schedule = schedule._replace(total_iters=max_steps)
+    plateau = optim.PlateauTracker(schedule)
+    logger.log_hparams(cfg.to_container())
+
+    t_start = time.time()
+    for epoch in range(start_epoch, max_epochs):
+        epoch_losses = []
+        for batch in train_loader:
+            if schedule.kind == "polynomial":
+                optim.set_learning_rate(state.optimizer,
+                                        schedule.value(global_step))
+            state, loss = experiment.train_step(
+                state, _device_batch(batch, device), generator)
+            epoch_losses.append(loss)
+            global_step += 1
+            if max_steps_override and global_step >= max_steps_override:
+                break
+        train_loss = float(torch.stack(epoch_losses).float().mean())
+        logger.log_scalars({"training/train_loss": train_loss,
+                            "lr": optim.get_learning_rate(state.optimizer)},
+                           global_step)
+
+        val_metrics: Dict[str, list] = {}
+        for i, batch in enumerate(val_loader):
+            batch = _device_batch(batch, device)
+            out = experiment.val_step(state.params, batch, generator)
+            for k, v in out.items():
+                val_metrics.setdefault(k, []).append(float(v))
+            if i == 0:
+                _log_val_image(logger, experiment, state.params, batch,
+                               global_step)
+        val_means = {f"validation/{k}": float(np.mean(v))
+                     for k, v in val_metrics.items()}
+        logger.log_scalars(val_means, global_step)
+        val_loss = val_means.get("validation/val_loss", train_loss)
+        print(f"epoch {epoch}: train_loss={train_loss:.4f} "
+              + " ".join(f"{k.split('/')[-1]}={v:.4f}"
+                         for k, v in val_means.items())
+              + f" [{time.time() - t_start:.1f}s]")
+
+        if schedule.kind == "plateau":
+            optim.set_learning_rate(state.optimizer, plateau.step(val_loss))
+        retention.save({"params": state.params}, cfg.to_container(),
+                       epoch=epoch, global_step=global_step,
+                       torch_optimizer_state=state.optimizer.state_dict(),
+                       monitored=val_loss)
+        if max_steps_override and global_step >= max_steps_override:
+            break
+
+    logger.finalize()
+    return os.path.join(retention.ckpt_dir, "last.ckpt")
