@@ -6,9 +6,13 @@
 Phases, each of which raises on failure:
 
 1. describe the card (name and power limit from nvidia-smi);
-2. build the kernels: K1 (CUDA C++, nvcc), K2 and K3 (Triton JIT);
+2. build the kernels: K1 (CUDA C++, nvcc), K2 and K3 (Triton JIT); read
+   the nvcc log (no register spills) and count the tensor-core
+   instructions (HMMA) in each of K1's bf16 tensor-core kernels with
+   cuobjdump, where the toolkit has it;
 3. hold K1 against its plain PyTorch version on the card, in float32
-   and bfloat16, over every fusion the main path uses;
+   and bfloat16, over every fusion the main path uses and every regime
+   of ``conv3d.plan`` (each case checks that its regime launched);
 4. hold K2 against its plain version, on a stack with exact zeros;
 5. hold K3 against its plain version in both bit modes (the bits
    exactly, the sums within tolerance, sigma = 0 exactly softmax);
@@ -31,8 +35,10 @@ Phases, each of which raises on failure:
    step held against the plain path (K1b's plain version in every conv);
 9. time each kernel at its path's shape beside its bound, its plain
    version and a library yardstick (K3: the stock-torch sampling loop;
-   K1b: cuDNN's input gradient), time and profile a training step, and
-   break one batch of each scoring path down by device kernel with
+   K1b: cuDNN's input gradient), time and profile a training step, time
+   K1 at each of the 18 convs (with its regime) and its shallow and
+   tile16 kernels against each other where plan() chooses between them,
+   and break one batch of each scoring path down by device kernel with
    torch.profiler.
 
 Prints a ``{"kernels": [...]}`` JSON line and ends with
@@ -167,25 +173,44 @@ def k1_inputs(gen, dtype, b, d, h, w, groups, cin1, cin2, cout, prologue):
     return x, weight, bias, x2, maps
 
 
-# (name, B, D, H, W, G, Cin1, Cin2, Cout, prologue, activation, stats)
+# (name, B, D, H, W, G, Cin1, Cin2, Cout, prologue, activation, stats,
+#  the bf16 regime of conv3d.plan; float32 always runs "f32")
 K1_CASES = [
-    ("plain", 2, 16, 16, 16, 5, 8, 0, 8, False, "none", False),
-    ("ragged tiles", 2, 20, 12, 28, 5, 8, 0, 8, False, "none", False),
-    ("x2 concat", 2, 16, 16, 16, 5, 8, 8, 8, False, "none", False),
+    ("plain", 2, 16, 16, 16, 5, 8, 0, 8, False, "none", False, "shallow"),
+    ("ragged tiles", 2, 20, 12, 28, 5, 8, 0, 8, False, "none", False,
+     "shallow"),
+    ("x2 concat", 2, 16, 16, 16, 5, 8, 8, 8, False, "none", False, "shallow"),
     ("prologue slopes 1/0.01/0", 2, 16, 16, 16, 5, 8, 0, 16, True,
-     "none", False),
-    ("relu epilogue", 2, 16, 16, 16, 5, 8, 0, 8, False, "relu", False),
+     "none", False, "shallow"),
+    ("relu epilogue", 2, 16, 16, 16, 5, 8, 0, 8, False, "relu", False,
+     "shallow"),
     ("leaky epilogue, x2 + prologue", 2, 16, 16, 16, 5, 8, 8, 8, True,
-     "leaky", False),
+     "leaky", False, "shallow"),
     ("emit_stats + prologue", 2, 16, 16, 16, 5, 16, 0, 32, True, "none",
-     True),
-    ("Cin=1, G=5, stats", 2, 16, 16, 16, 5, 1, 0, 8, False, "none", True),
+     True, "tile16"),
+    ("Cin=1, G=5, stats", 2, 16, 16, 16, 5, 1, 0, 8, False, "none", True,
+     "cin1"),
     ("center 4^3, 64->128, relu", 2, 4, 4, 4, 5, 64, 0, 128, True,
-     "relu", False),
+     "relu", False, "tile4"),
     ("expand_4_1 8^3, 64+64->64", 2, 8, 8, 8, 5, 64, 64, 64, True,
-     "leaky", False),
+     "leaky", False, "tile8"),
     ("full width 64^3, G=5, 8->8, stats", 2, 64, 64, 64, 5, 8, 0, 8, True,
-     "none", True),
+     "none", True, "shallow"),
+    # one per regime at the training path's and the deep levels' shapes
+    ("G=1 64^3 B=8, 1->8, stats", 8, 64, 64, 64, 1, 1, 0, 8, False, "none",
+     True, "cin1"),
+    ("G=1 64^3 B=8, 8->16 (a dx)", 8, 64, 64, 64, 1, 8, 0, 16, False,
+     "none", False, "shallow"),
+    ("G=1 64^3 B=8, 16->8, leaky", 8, 64, 64, 64, 1, 16, 0, 8, False,
+     "leaky", False, "shallow"),
+    ("16^3 2x8x16 tile, 32+32->32", 2, 16, 16, 16, 5, 32, 32, 32, True,
+     "leaky", False, "tile16"),
+    ("4^3 B=32, G=5, 128->128, stats", 32, 4, 4, 4, 5, 128, 0, 128, True,
+     "none", True, "tile4"),
+    ("ragged 9x12x10, 64->32, stats", 2, 9, 12, 10, 5, 64, 0, 32, True,
+     "none", True, "tile8"),
+    ("ragged 6x7x5, 32+32->64, leaky", 2, 6, 7, 5, 5, 32, 32, 64, True,
+     "leaky", False, "tile4"),
 ]
 
 # Tolerances, stated with their reasons:
@@ -211,13 +236,20 @@ def check_k1():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for dtype in (torch.float32, torch.bfloat16):
         rtol, atol_rel, stats_rtol = K1_TOL[str(dtype).split(".")[1]]
-        for (name, b, d, h, w, g, cin1, cin2, cout, pro, act,
-             stats) in K1_CASES:
+        for (name, b, d, h, w, g, cin1, cin2, cout, pro, act, stats,
+             regime) in K1_CASES:
             x, weight, bias, x2, maps = k1_inputs(
                 gen, dtype, b, d, h, w, g, cin1, cin2, cout, pro)
             kw = dict(x2=x2, prologue=maps, activation=act,
                       emit_stats=stats)
+            regime = "f32" if dtype == torch.float32 else regime
+            before = dict(conv3d_fused.regime_launches)
             got = conv3d_fused(x, weight, bias, g, **kw)
+            ran = {k: v - before[k] for k, v in
+                   conv3d_fused.regime_launches.items() if v != before[k]}
+            if ran != {regime: 1}:
+                raise AssertionError(f"K1 {dtype} case {name!r}: regime "
+                                     f"launches {ran}, expected {regime}")
             want = conv3d_fused_reference(x, weight, bias, g, **kw)
             torch.cuda.synchronize()
             if stats:
@@ -227,8 +259,9 @@ def check_k1():
             atol = (1e-4 if dtype == torch.float32
                     else atol_rel * float(ref.max()))
             bad = int((err > atol + rtol * ref).sum())
-            msg = (f"K1 {str(dtype)[6:]:8s} {name:34s} max_abs_err "
-                   f"{float(err.max()):.3e} (max|ref| {float(ref.max()):.3f})")
+            msg = (f"K1 {str(dtype)[6:]:8s} {regime:6s} {name:34s} "
+                   f"max_abs_err {float(err.max()):.3e} (max|ref| "
+                   f"{float(ref.max()):.3f})")
             if stats:
                 # scale each sum by the magnitude of what it adds up
                 s_err = float((gs - ws).abs().max())
@@ -241,6 +274,53 @@ def check_k1():
             if bad:
                 raise AssertionError(f"K1 {dtype} case {name!r}: {bad} "
                                      "values outside tolerance")
+
+
+# -- K1's build: spills and tensor-core instructions --------------------------
+
+K1_KERNELS = ("conv3d_f32_kernel", "conv3d_cin1_kernel", "conv3d_mma_kernel",
+              "conv3d_shallow_kernel")
+K1_TENSOR_CORE_KERNELS = ("conv3d_mma_kernel", "conv3d_shallow_kernel")
+
+
+def check_k1_build(lib) -> None:
+    """Read the nvcc log beside K1's library: every kernel without
+    register spills. Count the HMMA instructions of each of K1's kernels
+    in ``cuobjdump -sass``, where the toolkit has it; a bf16 tensor-core
+    kernel with none fails."""
+    import re
+    from values_tpu_torch.ops.kernels.build import _nvcc
+    path = lib._name
+    with open(os.path.splitext(path)[0] + ".log") as fh:
+        log_text = fh.read()
+    spills = [(int(a), int(b)) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log_text)]
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log_text)]
+    log(f"K1 build: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
+        f"spills {sum(a + b for a, b in spills)} bytes")
+    if not spills or any(a or b for a, b in spills):
+        raise AssertionError(f"K1's build spills registers: {spills}")
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        log("K1 SASS: cuobjdump not found, HMMA count not measured")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            counts[name] = 0
+        elif name and re.search(r"\bHMMA\b", line):
+            counts[name] += 1
+    for fn, n in sorted(counts.items()):
+        log(f"K1 SASS: {n:5d} HMMA in {fn}")
+    mma = {fn: n for fn, n in counts.items()
+           if any(k in fn for k in K1_TENSOR_CORE_KERNELS)}
+    families = {k for fn in mma for k in K1_TENSOR_CORE_KERNELS if k in fn}
+    if families != set(K1_TENSOR_CORE_KERNELS) or not all(mma.values()):
+        raise AssertionError(f"K1's tensor-core kernels lack HMMA: {mma}")
 
 
 # -- K2 against its plain version ---------------------------------------------
@@ -1306,7 +1386,7 @@ def time_training(exp32, state32, batch, root: str, card: str):
             kernels = [e for e in table if "CUDA" in str(e.device_type)
                        and e.self_device_time_total > 0]
             k1 = sum(e.self_device_time_total for e in kernels
-                     if "conv3d_fused" in e.key) / 1e3
+                     if any(n in e.key for n in K1_KERNELS)) / 1e3
             busy = sum(e.self_device_time_total for e in kernels) / 1e3
             dw = sum(e.device_time_total for e in table
                      if e.key == "aten::convolution_backward") / 1e3
@@ -1345,6 +1425,63 @@ def time_training(exp32, state32, batch, root: str, card: str):
     return result
 
 
+# (name, B, S, G, Cin1, Cin2, Cout, prologue, activation, stats): the
+# 64^3 and 32^3 convs of the scored batch and expand_1_1's dx in training
+K1_REGIME_SHAPES = [
+    ("expand_1_1", BATCH, 64, N_MEMBERS, 8, 8, 8, True, "leaky", False),
+    ("contr_1_2", BATCH, 64, N_MEMBERS, 8, 0, 8, True, "none", True),
+    ("contr_2_2", BATCH, 32, N_MEMBERS, 16, 0, 16, True, "none", True),
+    ("expand_2_1", BATCH, 32, N_MEMBERS, 16, 16, 16, True, "leaky", False),
+    ("dx of expand_1_1, B 8, G 1", 8, 64, 1, 8, 0, 16, False, "none",
+     False),
+]
+
+
+def time_k1_regimes():
+    """K1's shallow and tile16 kernels on the same inputs at the shapes
+    where plan() chooses between them (each forced in turn, checked
+    against the plain version with K1's bf16 tolerance): CUDA-event
+    medians, written to build/chip_smoke/k1_regimes.json."""
+    import torch
+    from values_tpu_torch.ops.kernels import conv3d
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    rtol, atol_rel, _ = K1_TOL["bfloat16"]
+    real, rows = conv3d.plan, []
+    try:
+        for name, b, sz, g, c1, c2, co, pro, act, stats in K1_REGIME_SHAPES:
+            x, w, bias, x2, maps = k1_inputs(gen, torch.bfloat16, b, sz, sz,
+                                             sz, g, c1, c2, co, pro)
+            kw = dict(x2=x2, prologue=maps, activation=act,
+                      emit_stats=stats)
+            want = conv3d.conv3d_fused_reference(x, w, bias, g, **kw)
+            want = (want[0] if stats else want).float()
+            chosen = real(torch.bfloat16, sz, sz, sz, g, c1, c2, co)
+            row = {"conv": name, "plan": chosen.regime}
+            for regime in ("shallow", "tile16"):
+                forced = (conv3d._shallow_plan(chosen.block_n, c1, c2)
+                          if regime == "shallow" else conv3d._mma_plan(
+                              "tile16", (2, 8, 16), chosen.block_n, c1 + c2))
+                conv3d.plan = lambda *a, f=forced: f
+                got = conv3d.conv3d_fused(x, w, bias, g, **kw)
+                got = (got[0] if stats else got).float()
+                if bool(((got - want).abs() > atol_rel * float(
+                        want.abs().max()) + rtol * want.abs()).any()):
+                    raise AssertionError(f"K1 {regime} at {name} disagrees "
+                                         "with its plain version")
+                row[f"{regime}_ms"] = cuda_ms(
+                    lambda: conv3d.conv3d_fused(x, w, bias, g, **kw))
+                conv3d.plan = real
+            rows.append(row)
+            log(f"K1 regimes at {name:28s}: shallow {row['shallow_ms']:.3f} "
+                f"ms, tile16 {row['tile16_ms']:.3f} ms; plan takes "
+                f"{row['plan']}")
+            del x, w, x2, want, got
+    finally:
+        conv3d.plan = real
+    with open(os.path.join(OUT_DIR, "k1_regimes.json"), "w") as fh:
+        json.dump(rows, fh, indent=1)
+
+
 def time_k1_layers(grouped, vols):
     """K1 at each of the path's 18 convs, in one bf16 forward at the
     path's batch: CUDA events around each call, beside each conv's bound.
@@ -1377,16 +1514,21 @@ def time_k1_layers(grouped, vols):
                 torch.cuda.synchronize()
     finally:
         ens.conv3d_fused = real
+    from values_tpu_torch.ops.kernels.conv3d import plan
     rows = []
     for xs, c2, ws, pro, act, stats, start, end in calls:
         b, d, h, w, c1 = xs
         vox, cin, gcout = b * d * h * w, ws[3], ws[4]
+        launch = plan(torch.bfloat16, d, h, w, N_MEMBERS, c1 // N_MEMBERS,
+                      c2 // N_MEMBERS, gcout // N_MEMBERS)
         bytes_moved = 2 * vox * (c1 + c2 + gcout) + 2 * 27 * cin * gcout
         flops = 2 * vox * 27 * cin * gcout
         bound_ms, bound_by = bound(bytes_moved, flops, "bfloat16")
         rows.append({"x": list(xs), "cin_per_group": cin,
                      "cout_per_group": gcout // N_MEMBERS, "x2": c2 > 0,
                      "prologue": pro, "activation": act, "stats": stats,
+                     "regime": launch.regime, "tile": list(launch.tile),
+                     "block_n": launch.block_n,
                      "ms": start.elapsed_time(end), "bound_ms": bound_ms,
                      "bound_by": bound_by,
                      "tflops": flops / start.elapsed_time(end) / 1e9})
@@ -1395,7 +1537,9 @@ def time_k1_layers(grouped, vols):
         f"{total:.2f} ms, bound {sum(r['bound_ms'] for r in rows):.3f} ms")
     for r in rows:
         log(f"  {'x'.join(map(str, r['x'][1:4])):>8s} cin {r['cin_per_group']:3d}"
-            f" cout {r['cout_per_group']:3d}: {r['ms']:8.3f} ms, bound "
+            f" cout {r['cout_per_group']:3d} {r['regime']:6s} "
+            f"{'x'.join(map(str, r['tile']))} n{r['block_n']}: "
+            f"{r['ms']:8.3f} ms, bound "
             f"{r['bound_ms']:.3f} ms ({r['bound_by']}), "
             f"{r['tflops']:.1f} TFLOP/s")
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1462,7 +1606,7 @@ def main() -> int:
 
     with phase("build", smi):
         t0 = time.perf_counter()
-        conv3d.load_kernel()
+        k1_lib = conv3d.load_kernel()
         t1 = time.perf_counter()
         entropy.fused_entropy(torch.full((2, 2, 256), 0.5, device="cuda"))
         torch.cuda.synchronize()
@@ -1473,6 +1617,7 @@ def main() -> int:
         t3 = time.perf_counter()
         log(f"build: K1 nvcc {t1 - t0:.1f} s, K2 triton JIT {t2 - t1:.1f} s, "
             f"K3 triton JIT {t3 - t2:.1f} s; card {smi}")
+        check_k1_build(k1_lib)
 
     with phase("K1 check", smi):
         check_k1()
@@ -1506,9 +1651,11 @@ def main() -> int:
             if "dw_library_ms" in k:
                 extra = (f"; dW at the same conv (cuDNN weight gradient) "
                          f"{k['dw_library_ms']:.3f} ms")
+            library = ("none" if k["library_ms"] is None
+                       else f"{k['library_ms']:.3f} ms")
             log(f"{k['name']} [{k['shape']}]: {k['ms']:.3f} ms, bound "
                 f"{k['bound_ms']:.3f} ms ({k['bound_by']}), plain "
-                f"{k['plain_ms']:.3f} ms, library {k['library_ms']} ms"
+                f"{k['plain_ms']:.3f} ms, library {library}"
                 f"{extra}; launches {k['launches']}; card {smi}")
     with phase("training timings and profiles", smi):
         training = time_training(exp32, state32, train_batch, train_root,
@@ -1518,6 +1665,7 @@ def main() -> int:
         for b in (16, 128):
             throughput(grouped, smi, b)
         time_k1_layers(grouped, vols)
+        time_k1_regimes()
         score, _ = make_scorer(N_MEMBERS, PATCH, agg_patch=AGG_PATCH,
                                threshold=THRESHOLD, dtype=torch.bfloat16)
         profile_batch(score, (grouped, vols, gt), "deterministic",

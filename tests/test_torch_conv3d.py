@@ -168,22 +168,46 @@ def test_cpu_tensors_take_the_plain_version():
         _torch_conv(dict(activation="gelu"), conv3d_fused)
 
 
+# one shape per regime of conv3d.plan (bf16; float32 always runs "f32"):
+# (regime, B, (D, H, W), G, Cin1, Cin2, Cout)
+REGIME_CASES = [
+    ("cin1", 2, (16, 12, 20), 5, 1, 0, 8),
+    ("shallow", 2, (16, 16, 16), 2, 8, 8, 16),
+    ("tile16", 2, (16, 16, 16), 2, 16, 16, 32),
+    ("tile8", 2, (9, 12, 10), 2, 32, 0, 32),
+    ("tile4", 2, (4, 4, 4), 2, 64, 0, 64),
+]
+
+
+def _regime_case(regime, b, dims, groups, cin1, cin2, cout):
+    """numpy-seeded inputs of a regime case, with x2, prologue and stats
+    where the shape has them: (x, weight, bias, x2, maps)."""
+    rs = np.random.RandomState(len(regime) + cin1 + cout)
+    x = rs.rand(b, *dims, groups * cin1)
+    x2 = rs.rand(b, *dims, groups * cin2) if cin2 else None
+    cin = cin1 + cin2
+    weight = (rs.rand(3, 3, 3, cin, groups * cout) - 0.3) * 2 / \
+        np.sqrt(27 * cin)
+    bias = rs.rand(groups * cout) * 0.1
+    n = groups * cin
+    maps = (rs.rand(b, n) + 0.5, rs.rand(b, n) - 0.5,
+            rs.choice([1.0, 0.01, 0.0], size=(b, n)))
+    return x, weight, bias, x2, maps
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_cuda(dtype):
     """The CUDA kernel against the plain version on the card: f32 atol
     1e-4 (summation order; TF32 off on the plain side); bf16 one output
     ulp (2**-7 relative) plus 2e-3 of the range, for roundings to the
-    neighbouring bf16 value."""
+    neighbouring bf16 value. The cases of the file, then one per regime
+    of ``plan``, each checked to launch that regime."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
-    for name, case in CASES.items():
-        before = conv3d_fused.launches
-        got, got_stats = _torch_conv(case, conv3d_fused, dtype, "cuda")
-        want, want_stats = _torch_conv(case, conv3d_fused_reference, dtype,
-                                       "cuda")
-        assert conv3d_fused.launches == before + 1, name
+
+    def compare(got, want, got_stats, want_stats, name):
         got, want = got.float().cpu(), want.float().cpu()
         if dtype == torch.float32:
             np.testing.assert_allclose(got, want, atol=1e-4, err_msg=name)
@@ -195,3 +219,33 @@ def test_kernel_matches_plain_on_cuda(dtype):
             for g, w in zip(got_stats, want_stats):
                 np.testing.assert_allclose(g.cpu(), w.cpu(), rtol=1e-3,
                                            atol=1e-2, err_msg=name)
+
+    for name, case in CASES.items():
+        before = conv3d_fused.launches
+        got, got_stats = _torch_conv(case, conv3d_fused, dtype, "cuda")
+        want, want_stats = _torch_conv(case, conv3d_fused_reference, dtype,
+                                       "cuda")
+        assert conv3d_fused.launches == before + 1, name
+        compare(got, want, got_stats, want_stats, name)
+
+    for regime, *shape in REGIME_CASES:
+        x, weight, bias, x2, maps = _regime_case(regime, *shape)
+        t = lambda a, dt=dtype: None if a is None else torch.tensor(  # noqa
+            a, dtype=dt, device="cuda")
+        args = (t(x), t(weight), t(bias, torch.float32), shape[2])
+        kw = dict(x2=t(x2), prologue=tuple(t(m, torch.float32)
+                                           for m in maps),
+                  activation="leaky", emit_stats=False)
+        stats = dict(kw, activation="none", emit_stats=True)
+        want_regime = "f32" if dtype == torch.float32 else regime
+        for options in (kw, stats):
+            before = dict(conv3d_fused.regime_launches)
+            got = conv3d_fused(*args, **options)
+            ran = {k: v - before[k] for k, v in
+                   conv3d_fused.regime_launches.items() if v != before[k]}
+            assert ran == {want_regime: 1}, (regime, ran)
+            want = conv3d_fused_reference(*args, **options)
+            if options["emit_stats"]:
+                compare(got[0], want[0], got[1], want[1], regime)
+            else:
+                compare(got, want, None, None, regime)
