@@ -6,16 +6,21 @@
 Phases, each of which raises on failure:
 
 1. describe the card (name and power limit from nvidia-smi);
-2. build the kernels: K1 (CUDA C++, nvcc), K2 and K3 (Triton JIT); read
-   the nvcc log (no register spills) and count the tensor-core
-   instructions (HMMA) in each of K1's bf16 tensor-core kernels with
-   cuobjdump, where the toolkit has it;
+2. build the kernels, all CUDA C++ with nvcc, the two libraries in
+   parallel: K1, and K2 with K3; read each nvcc log (no register
+   spills), and where the toolkit has cuobjdump count the tensor-core
+   instructions (HMMA) in each of K1's bf16 tensor-core kernels and the
+   SFU (MUFU) and integer multiply-add (IMAD) instructions of K3's
+   kernel on the aleatoric path;
 3. hold K1 against its plain PyTorch version on the card, in float32
    and bfloat16, over every fusion the main path uses and every regime
    of ``conv3d.plan`` (each case checks that its regime launched);
-4. hold K2 against its plain version, on a stack with exact zeros;
+4. hold K2 against its plain version: the probability form on a stack
+   with exact zeros (contiguous and channels-last), the logits form in
+   float32 and bfloat16;
 5. hold K3 against its plain version in both bit modes (the bits
-   exactly, the sums within tolerance, sigma = 0 exactly softmax);
+   exactly; the sums within tolerance in the sigma form, the log_var
+   form and in bfloat16; sigma = 0 exactly softmax);
 5b. hold K1b (K1's autograd Function) against autograd through K1's
    plain version: dx, dW and db, f32 and bf16, with statistics and with
    the leaky and ReLU epilogues;
@@ -34,12 +39,15 @@ Phases, each of which raises on failure:
    that the score CLI then scores, launches counted; the f32 run's first
    step held against the plain path (K1b's plain version in every conv);
 9. time each kernel at its path's shape beside its bound, its plain
-   version and a library yardstick (K3: the stock-torch sampling loop;
-   K1b: cuDNN's input gradient), time and profile a training step, time
+   version and a library yardstick (K3: the stock-torch sampling loop,
+   and its SFU floor, computed at the card's maximum SM clock; K2: both
+   forms; K1b: cuDNN's input gradient), time and profile a training
+   step, time
    K1 at each of the 18 convs (with its regime) and its shallow and
    tile16 kernels against each other where plan() chooses between them,
    and break one batch of each scoring path down by device kernel with
-   torch.profiler.
+   torch.profiler, checking that no cast, exp or softmax runs over the
+   logits or the head outside K2 and K3.
 
 Prints a ``{"kernels": [...]}`` JSON line and ends with
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -123,8 +131,11 @@ def expect_launches(launches: dict, want: dict, what: str) -> None:
         raise AssertionError(f"{what}: launches {launches}, expected {want}")
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median CUDA-event time of ``fn()`` in milliseconds."""
+def cuda_ms(fn, reps: int = 10, warmup: int = 2, inner: int = 1) -> float:
+    """Median CUDA-event time of ``fn()`` in milliseconds; with ``inner``
+    > 1, each sample times that many calls back to back and divides, so
+    that a kernel shorter than its wrapper's host time is timed as the
+    card runs it, not as the host feeds it."""
     import torch
     for _ in range(warmup):
         fn()
@@ -133,10 +144,11 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -283,44 +295,83 @@ K1_KERNELS = ("conv3d_f32_kernel", "conv3d_cin1_kernel", "conv3d_mma_kernel",
 K1_TENSOR_CORE_KERNELS = ("conv3d_mma_kernel", "conv3d_shallow_kernel")
 
 
-def check_k1_build(lib) -> None:
-    """Read the nvcc log beside K1's library: every kernel without
-    register spills. Count the HMMA instructions of each of K1's kernels
-    in ``cuobjdump -sass``, where the toolkit has it; a bf16 tensor-core
-    kernel with none fails."""
+def nvcc_report(lib, what: str) -> None:
+    """Read the nvcc log beside a library: every kernel without register
+    spills."""
     import re
-    from values_tpu_torch.ops.kernels.build import _nvcc
-    path = lib._name
-    with open(os.path.splitext(path)[0] + ".log") as fh:
+    with open(os.path.splitext(lib._name)[0] + ".log") as fh:
         log_text = fh.read()
     spills = [(int(a), int(b)) for a, b in re.findall(
         r"(\d+) bytes spill stores, (\d+) bytes spill loads", log_text)]
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log_text)]
-    log(f"K1 build: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
-        f"spills {sum(a + b for a, b in spills)} bytes")
+    log(f"{what} build: {len(regs)} kernels, registers {min(regs)}-"
+        f"{max(regs)}, spills {sum(a + b for a, b in spills)} bytes")
     if not spills or any(a or b for a, b in spills):
-        raise AssertionError(f"K1's build spills registers: {spills}")
+        raise AssertionError(f"{what}'s build spills registers: {spills}")
+
+
+def sass_counts(lib, opcodes) -> dict:
+    """{kernel: {opcode: count, "all": instructions}} from ``cuobjdump
+    -sass`` of a library; {} where the toolkit has no cuobjdump."""
+    import re
+    from values_tpu_torch.ops.kernels.build import _nvcc
     cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
-        log("K1 SASS: cuobjdump not found, HMMA count not measured")
-        return
-    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
-                          text=True, check=True).stdout
+        return {}
+    sass = subprocess.run([cuobjdump, "-sass", lib._name],
+                          capture_output=True, text=True, check=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
         found = re.search(r"Function : (\S+)", line)
         if found:
             name = found.group(1)
-            counts[name] = 0
-        elif name and re.search(r"\bHMMA\b", line):
-            counts[name] += 1
+            counts[name] = dict.fromkeys(opcodes + ("all",), 0)
+        elif name and re.search(r"/\*[0-9a-f]{4}\*/\s+\S", line):
+            counts[name]["all"] += 1
+            for op in opcodes:
+                counts[name][op] += bool(re.search(rf"\b{op}\b", line))
+    return counts
+
+
+def check_k1_build(lib) -> None:
+    """K1's build: no spills; the HMMA instructions of each of K1's
+    kernels, where the toolkit has cuobjdump; a bf16 tensor-core kernel
+    with none fails."""
+    nvcc_report(lib, "K1")
+    counts = sass_counts(lib, ("HMMA",))
+    if not counts:
+        log("K1 SASS: cuobjdump not found, HMMA count not measured")
+        return
     for fn, n in sorted(counts.items()):
-        log(f"K1 SASS: {n:5d} HMMA in {fn}")
-    mma = {fn: n for fn, n in counts.items()
+        log(f"K1 SASS: {n['HMMA']:5d} HMMA in {fn}")
+    mma = {fn: n["HMMA"] for fn, n in counts.items()
            if any(k in fn for k in K1_TENSOR_CORE_KERNELS)}
     families = {k for fn in mma for k in K1_TENSOR_CORE_KERNELS if k in fn}
     if families != set(K1_TENSOR_CORE_KERNELS) or not all(mma.values()):
         raise AssertionError(f"K1's tensor-core kernels lack HMMA: {mma}")
+
+
+# K3's kernel on the aleatoric path: two classes, Philox, log_var, bf16
+K3_PATH_KERNEL = "sampled_stats_c2_kernelILb0ELb1E13__nv_bfloat16"
+
+
+def check_stats_build(lib) -> dict:
+    """K2 and K3's build: no spills; the MUFU and IMAD instructions of
+    K3's kernel on the aleatoric path (static counts in its SASS), where
+    the toolkit has cuobjdump."""
+    nvcc_report(lib, "K2 + K3")
+    every = sass_counts(lib, ("MUFU", "IMAD"))
+    if not every:
+        log("K3 SASS: cuobjdump not found, MUFU/IMAD counts not measured")
+        return {}
+    counts = {fn: n for fn, n in every.items() if K3_PATH_KERNEL in fn}
+    if len(counts) != 1:
+        raise AssertionError(f"K3 SASS: {len(counts)} kernels match "
+                             f"{K3_PATH_KERNEL}, not 1: {sorted(every)}")
+    (fn, n), = counts.items()
+    log(f"K3 SASS of the path's kernel: {n['MUFU']} MUFU, {n['IMAD']} IMAD "
+        f"of {n['all']} instructions ({fn})")
+    return n
 
 
 # -- K2 against its plain version ---------------------------------------------
@@ -338,31 +389,48 @@ def entropy_stack(gen, s, c, n):
 
 
 def check_k2():
+    """The probability form as the JAX kernel takes it (contiguous and a
+    channels-last view, exact zeros), and the logits form in float32 and
+    bfloat16 (voxel-major, and sample-major as the scorer hands it over),
+    each against its plain version; every layout but sample-major goes
+    through the wrapper's copy (at N = 100,003 into padded rows). Returns
+    the worst error."""
     import torch
     from values_tpu_torch.ops.kernels.entropy import (
         fused_entropy, fused_entropy_reference)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    # atol 1e-5: the kernel's and PyTorch's float32 log differ in the
-    # last ulps, and each map sums S*C terms of magnitude <= 1/e
+    # atol 1e-5: the kernel's float32 SFU exp and log and PyTorch's differ
+    # in the last ulps, and each map sums S*C terms of magnitude <= 1/e
     worst = 0.0
     for s, c, n in ((5, 2, 1 << 20), (3, 4, 100_003)):
         stack = entropy_stack(gen, s, c, n)
         if not bool((stack == 0).any()):
             raise AssertionError("the K2 check needs exact zeros")
-        got, want = fused_entropy(stack), fused_entropy_reference(stack)
-        # a permuted (channels-last) view, as the scorer hands it over
-        cl = stack.permute(2, 0, 1).contiguous().permute(1, 2, 0)
-        got_cl = fused_entropy(cl)
-        torch.cuda.synchronize()
-        for key in want:
-            for g in (got[key], got_cl[key]):
-                err = float((g - want[key]).abs().max())
-                worst = max(worst, err)
-                if not err <= 1e-5:
-                    raise AssertionError(f"K2 {key} at S={s} C={c}: "
-                                         f"max_abs_err {err:.3e}")
-        log(f"K2 S={s} C={c} N={n}: max_abs_err {worst:.3e} (contiguous "
-            "and channels-last view)")
+        logits = (torch.randn((n, s, c), generator=gen, device="cuda") * 3
+                  ).permute(1, 2, 0)
+        # sample-major, as the forward's grouped head leaves its logits
+        by_sample = logits.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+        cases = {"probabilities": (stack, False),
+                 "probabilities, channels-last": (
+                     stack.permute(2, 0, 1).contiguous().permute(1, 2, 0),
+                     False),
+                 "logits f32": (logits, True),
+                 "logits bf16": (logits.to(torch.bfloat16), True),
+                 "logits bf16, sample-major": (
+                     by_sample.to(torch.bfloat16), True)}
+        errs = {}
+        for name, (x, is_logits) in cases.items():
+            got = fused_entropy(x, logits=is_logits)
+            want = fused_entropy_reference(x, logits=is_logits)
+            torch.cuda.synchronize()
+            errs[name] = max(float((got[k].float() - want[k].float()).abs()
+                                   .max()) for k in want)
+            if not errs[name] <= 1e-5:
+                raise AssertionError(f"K2 {name} at S={s} C={c}: "
+                                     f"max_abs_err {errs[name]:.3e}")
+        worst = max(worst, *errs.values())
+        log(f"K2 S={s} C={c} N={n}: max_abs_err " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()))
     return worst
 
 
@@ -372,30 +440,35 @@ def k3_head(gen, n, m, c):
     """An (N, M, 2C) float32 head and its (mu, sigma) views, as the
     aleatoric scorer slices them: mu = head[..., :C] ~ 2 N(0, 1), and
     sigma = exp(s / 2) of a unit-scale log-variance s ~ N(0, 1), written
-    back into head[..., C:]."""
+    back into head[..., C:]. Returns (mu, sigma, s)."""
     import torch
     head = torch.randn((n, m, 2 * c), generator=gen, device="cuda")
     head[..., :c] *= 2
+    log_var = head[..., c:].clone()
     head[..., c:] = torch.exp(head[..., c:] / 2)
-    return head[..., :c], head[..., c:]
+    return head[..., :c], head[..., c:], log_var
 
 
 def check_k3():
-    """Both bit modes at M=5, C=2, n=3: the bits exactly, then the sums
-    and the sigma = 0 case. Tolerances: sums atol 1e-4, rtol 1e-5 (the
-    kernel's float32 exp, log, sqrt and divisions and its FMAs differ
-    from PyTorch's by ulps; each sum adds M*n = 15 terms of magnitude at
-    most 1, or log C); sigma = 0: atol 1e-5 against n * sum_m
-    softmax(mu). Returns the worst sum error."""
+    """Both bit modes at M=5, n=3, C=2 (the two-class kernel) and C=3
+    (the general one): the bits exactly, then the sums in the sigma form,
+    the log_var form and in bfloat16 (log_var), and the sigma = 0 case.
+    Tolerances: sums atol 1e-4, rtol 1e-5 (the kernel's float32 SFU exp, log, sqrt and reciprocals and its FMAs differ from
+    PyTorch's by ulps; each sum adds M*n = 15 terms of magnitude at most
+    1, or log C); sigma = 0: atol 1e-5 against n * sum_m softmax(mu).
+    Returns the worst sum error."""
     import torch
     from values_tpu_torch.ops.kernels import sampling
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    m, c, n_s, seed = N_MEMBERS, CLASSES, 3, 2 ** 33 + 12345
-    # (bits, N, spatial, counter_rows): ragged N for the 256-voxel blocks
-    cases = (("philox", 100_003, None, None),
-             ("counter", 5 * 8 * 7 * 16, (8, 7, 16), 4))
+    m, n_s, seed = N_MEMBERS, 3, 2 ** 33 + 12345
+    # (bits, C, N, spatial, counter_rows): ragged N for the 256-voxel
+    # blocks
+    cases = (("philox", CLASSES, 100_003, None, None),
+             ("counter", CLASSES, 5 * 8 * 7 * 16, (8, 7, 16), 4),
+             ("philox", 3, 50_001, None, None),
+             ("counter", 3, 3 * 8 * 8 * 16, (8, 8, 16), 4))
     worst = 0.0
-    for bits, n, spatial, rows in cases:
+    for bits, c, n, spatial, rows in cases:
         kw = dict(n_samples=n_s, bits=bits, spatial=spatial,
                   counter_rows=rows)
         got_bits = sampling.sample_bits(n, m, c, seed, device="cuda", **kw)
@@ -405,18 +478,24 @@ def check_k3():
             bad = int((got_bits != want_bits).sum())
             raise AssertionError(f"K3 {bits} bits: {bad} of "
                                  f"{got_bits.numel()} words differ")
-        mu, sigma = k3_head(gen, n, m, c)
-        got = sampling.sampled_softmax_stats(mu, sigma, seed, **kw)
-        want = sampling.sampled_softmax_stats_reference(mu, sigma, seed,
-                                                        **kw)
-        errs = []
-        for name, g, w in zip(("sum_p", "sum_ent"), got, want):
-            err = (g - w).abs()
-            errs.append(float(err.max()))
-            if bool((err > 1e-4 + 1e-5 * w.abs()).any()):
-                raise AssertionError(f"K3 {bits} {name}: max_abs_err "
-                                     f"{errs[-1]:.3e}")
-        worst = max(worst, *errs)
+        mu, sigma, log_var = k3_head(gen, n, m, c)
+        forms = {"sigma": (mu, sigma, {}),
+                 "log_var": (mu, None, {"log_var": log_var}),
+                 "log_var bf16": (mu.to(torch.bfloat16), None,
+                                  {"log_var": log_var.to(torch.bfloat16)})}
+        errs = {}
+        for form, (mu_t, sigma_t, extra) in forms.items():
+            got = sampling.sampled_softmax_stats(mu_t, sigma_t, seed, **kw,
+                                                 **extra)
+            want = sampling.sampled_softmax_stats_reference(
+                mu_t, sigma_t, seed, **kw, **extra)
+            for name, g, w in zip(("sum_p", "sum_ent"), got, want):
+                err = (g - w).abs()
+                errs[f"{form} {name}"] = float(err.max())
+                if bool((err > 1e-4 + 1e-5 * w.abs()).any()):
+                    raise AssertionError(f"K3 {bits} {form} {name}: "
+                                         f"max_abs_err {float(err.max()):.3e}")
+        worst = max(worst, *errs.values())
         zero_p, _ = sampling.sampled_softmax_stats(
             mu, torch.zeros_like(sigma), seed, **kw)
         soft = n_s * torch.softmax(mu, dim=-1).sum(dim=1).t()
@@ -424,8 +503,9 @@ def check_k3():
         if not err0 <= 1e-5:
             raise AssertionError(f"K3 {bits} sigma=0: max_abs_err {err0:.3e}")
         log(f"K3 {bits:7s} M={m} C={c} n={n_s} N={n}: bits equal "
-            f"({got_bits.numel()} words); max_abs_err sum_p {errs[0]:.3e} "
-            f"sum_ent {errs[1]:.3e}; sigma=0 {err0:.3e} (strided views)")
+            f"({got_bits.numel()} words); max_abs_err " + ", ".join(
+                f"{k} {v:.3e}" for k, v in errs.items())
+            + f"; sigma=0 {err0:.3e} (strided views)")
     return worst
 
 
@@ -1134,50 +1214,79 @@ def time_k1(launches, b):
 
 
 def time_k2(launches, grouped, vols):
-    """K2 at the path's shape: the (M, C, N) float32 softmax view of one
-    batch's logits."""
+    """K2 at the path's shape: the logits form on the (M, C, N) view of
+    one batch's bf16 logits, sample-major as the forward leaves them and
+    the scorer hands them over (fails if they are not, as the wrapper
+    would then copy them on every call); beside it the probability form
+    on the float32 softmax of the same logits (the JAX kernel's contract,
+    channels-last as torch.softmax leaves it, so its time includes the
+    wrapper's copy into the sample-major layout), each with its bound."""
     import torch
     from values_tpu_torch.models.ensemble_unet3d import (
         cast_weights, grouped_forward_fused)
     from values_tpu_torch.ops.kernels.entropy import (
-        fused_entropy, fused_entropy_reference)
+        _sample_stride, fused_entropy, fused_entropy_reference)
     with torch.no_grad():
         logits = grouped_forward_fused(
             cast_weights(grouped, torch.bfloat16, vols.device),
             vols.to(torch.bfloat16), N_MEMBERS)
     m, c = logits.shape[-2:]
-    probs = torch.softmax(logits.float(), dim=-1)
-    stack = probs.reshape(-1, m, c).permute(1, 2, 0)
-    got, want = fused_entropy(stack), fused_entropy_reference(stack)
-    err = max(float((got[k] - want[k]).abs().max()) for k in want)
+    view = logits.reshape(-1, m, c).permute(1, 2, 0)
+    if not _sample_stride(view):
+        raise AssertionError(f"the forward's logits, strides {view.stride()}"
+                             ", are not in K2's sample-major layout")
+    probs = torch.softmax(logits.float(), dim=-1).reshape(-1, m, c
+                                                          ).permute(1, 2, 0)
+    err = 0.0
+    for x, is_logits in ((view, True), (probs, False)):
+        got = fused_entropy(x, logits=is_logits)
+        want = fused_entropy_reference(x, logits=is_logits)
+        err = max(err, *(float((got[k] - want[k]).abs().max())
+                         for k in want))
     if not err <= 1e-5:
         raise AssertionError(f"K2 at the path's shape: max_abs_err {err}")
-    ms = cuda_ms(lambda: fused_entropy(stack))
-    plain_ms = cuda_ms(lambda: fused_entropy_reference(stack), reps=5)
-    n = stack.shape[-1]
-    bytes_moved = 4 * n * (m * c + c + 3)
-    flops = n * (4 * m * c + 4 * c + 3)   # mean, p log p, sums, MI
-    bound_ms, bound_by = bound(bytes_moved, flops, "float32")
-    return {"name": "fused_entropy", "route": "triton",
-            "source": "values_tpu_torch/ops/kernels/entropy.py",
+    n = view.shape[-1]
+    # 10 back-to-back launches per sample: the kernel is shorter than the
+    # wrapper's host time
+    ms = cuda_ms(lambda: fused_entropy(view, logits=True), reps=20, inner=10)
+    plain_ms = cuda_ms(lambda: fused_entropy_reference(view, logits=True),
+                       reps=5)
+    probs_ms = cuda_ms(lambda: fused_entropy(probs), reps=20, inner=10)
+    probs_plain_ms = cuda_ms(lambda: fused_entropy_reference(probs), reps=5)
+    # read S*C logits (bf16) or probabilities (f32); write C + 3 floats.
+    # Operations per voxel: the softmax per sample (5C - 1: max, shift,
+    # exp, sum, reciprocal, scale), then mean, p log p, sums, MI
+    stats_ops = 4 * m * c + 4 * c + 3
+    bound_ms, bound_by = bound(2 * n * m * c + 4 * n * (c + 3),
+                               n * (m * (5 * c - 1) + stats_ops), "float32")
+    probs_bound_ms, probs_bound_by = bound(4 * n * m * c + 4 * n * (c + 3),
+                                           n * stats_ops, "float32")
+    return {"name": "fused_entropy", "route": "cuda",
+            "source": "values_tpu_torch/csrc/entropy.cu",
             "replaces": "values_tpu/ops/pallas/entropy.py:28",
             "launches": launches["fused_entropy"], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "shape": f"S={m} C={c} N={n} f32 channels-last view"}
+            "shape": f"logits form, S={m} C={c} N={n} bf16, the forward's "
+                     "sample-major layout",
+            "probs_ms": probs_ms, "probs_plain_ms": probs_plain_ms,
+            "probs_bound_ms": probs_bound_ms,
+            "probs_bound_by": probs_bound_by,
+            "probs_shape": f"probability form, S={m} C={c} N={n} f32 "
+                           "channels-last view, the wrapper's copy "
+                           "included"}
 
 
 ACKLAM_CENTRAL, ACKLAM_TAIL = 24, 27   # operations of each branch
 ACKLAM_TAIL_SHARE = 2 * 0.02425       # P(u < PLOW or u > 1 - PLOW)
+SFU_PER_CLOCK = 16 * 132              # MUFU results per clock, H100 SXM
 
 
-def k3_operations(n: int, m: int, c: int, n_samples: int, bits: str, *,
-                  as_written: bool = False) -> float:
+def k3_operations(n: int, m: int, c: int, n_samples: int, bits: str
+                  ) -> float:
     """Operations of K3's function at (N, M, C, n_samples), counting an
     FMA as 2 and each compare, select, integer op, exp, log, sqrt and
-    division as 1, per (voxel, member, sample) draw group of C classes.
-
-    What the function needs (the default):
+    division as 1, per (voxel, member, sample) draw group of C classes:
 
     - bits: Philox4x32-10 gives 4 words for 80 operations (10 rounds x
       2 umulhi, 2 mul, 4 xor), so 20 per class plus 1 to place the word;
@@ -1189,33 +1298,48 @@ def k3_operations(n: int, m: int, c: int, n_samples: int, bits: str, *,
       that land in a tail (in expectation; at 8.4e8 draws this run's
       share is within 1e-4 of it); logits 2 (one FMA);
     - softmax and entropy 9 C - 1 (max, shift, exp, sum, divide, log,
-      log p, p log p, sum, two accumulates).
+      log p, p log p, sum, two accumulates);
 
-    ``as_written``: the work the kernel does as written instead -- a
-    whole Philox call per 4 classes and 4 selects per class, both Acklam
-    branches and a 4-operation select on every draw, a class mask on the
-    logits and on p log p.
+    and, as the aleatoric path hands over the head's log-variance, one
+    exp (and a halving) per (voxel, member, class) to form sigma.
     """
-    if as_written:
-        groups = (c + 3) // 4
-        draw = (80 * groups + 4 * c * groups if bits == "philox"
-                else 10 * c + 2)
-        per_class = 4 + ACKLAM_CENTRAL + ACKLAM_TAIL + 4 + 3
-        per_group = draw + c * per_class + 10 * c - 1
-    else:
-        draw = 21 * c if bits == "philox" else 10 * c + 2
-        normal = 2 + (1 - ACKLAM_TAIL_SHARE) * ACKLAM_CENTRAL \
-            + ACKLAM_TAIL_SHARE * ACKLAM_TAIL
-        per_group = draw + c * (4 + normal + 2) + 9 * c - 1
-    return n * m * n_samples * per_group
+    draw = 21 * c if bits == "philox" else 10 * c + 2
+    normal = 2 + (1 - ACKLAM_TAIL_SHARE) * ACKLAM_CENTRAL \
+        + ACKLAM_TAIL_SHARE * ACKLAM_TAIL
+    per_group = draw + c * (4 + normal + 2) + 9 * c - 1
+    return n * m * (n_samples * per_group + 2 * c)
+
+
+def k3_sfu_operations(n: int, m: int, c: int, n_samples: int) -> float:
+    """The SFU (MUFU) operations K3's function needs with the log_var
+    head: per draw group the softmax and entropy (at C = 2 one exp, one
+    log and one reciprocal; else C exps, a log and a reciprocal), per
+    draw a reciprocal for the central branch's division or, at the tail
+    share, a log, a square root and a reciprocal; per (voxel, member,
+    class) one exp for sigma."""
+    softmax = 3 if c == 2 else c + 2
+    per_draw = (1 - ACKLAM_TAIL_SHARE) * 1 + ACKLAM_TAIL_SHARE * 3
+    return n * m * (n_samples * (softmax + c * per_draw) + c)
+
+
+def max_sm_clock_mhz():
+    """Card 0's maximum SM clock (MHz) as nvidia-smi reads it, or None.
+    An SFU floor at the maximum clock is the least one."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True).stdout.strip()
+    return float(out) if out.isdigit() else None
 
 
 def time_k3(launches, grouped, vols):
-    """K3 at the aleatoric path's shape: the (N, M, C) float32 mu and
-    sigma views of one bf16 batch's (mu, s) head, 10 samples per member,
-    Philox bits; beside its plain version and the stock-torch streaming
-    loop (torch.randn draws, softmax, accumulate per sample), the port's
-    counterpart of the JAX package's ``sampler="xla"``."""
+    """K3 at the aleatoric path's shape, as the scorer calls it: the
+    (N, M, C) bf16 mu and log_var views of one batch's (mu, s) head, 10
+    samples per member, Philox bits; beside its plain version, the
+    stock-torch streaming loop (torch.randn draws, softmax, accumulate
+    per sample, on the float32 mu and sigma), the port's counterpart of
+    the JAX package's ``sampler="xla"``, and its SFU floor (computed, as
+    the bound is) at the card's maximum SM clock."""
     import torch
     from values_tpu_torch.models.ensemble_unet3d import (
         cast_weights, grouped_forward_fused)
@@ -1225,24 +1349,26 @@ def time_k3(launches, grouped, vols):
     with torch.no_grad():
         out = grouped_forward_fused(
             cast_weights(grouped, torch.bfloat16, vols.device),
-            vols.to(torch.bfloat16), N_MEMBERS).to(torch.float32)
+            vols.to(torch.bfloat16), N_MEMBERS)
     c = out.shape[-1] // 2
-    mu = out[..., :c].reshape(-1, N_MEMBERS, c)
-    sigma = torch.exp(out[..., c:] / 2.0).reshape(-1, N_MEMBERS, c)
+    head = out.reshape(-1, N_MEMBERS, 2 * c)
+    mu, log_var = head[..., :c], head[..., c:]
     n = mu.shape[0]
-    kw = dict(n_samples=N_ALEATORIC)
-    got = sampled_softmax_stats(mu, sigma, 3, **kw)
-    want = sampled_softmax_stats_reference(mu, sigma, 3, **kw)
+    kw = dict(n_samples=N_ALEATORIC, log_var=log_var)
+    got = sampled_softmax_stats(mu, None, 3, **kw)
+    want = sampled_softmax_stats_reference(mu, None, 3, **kw)
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     # the check phase's tolerance, on sums of M*n = 50 terms
     if not all(bool(((g - w).abs() <= 1e-4 + 1e-5 * w.abs()).all())
                for g, w in zip(got, want)):
         raise AssertionError(f"K3 at the path's shape: max_abs_err {err}")
     del got, want
-    ms = cuda_ms(lambda: sampled_softmax_stats(mu, sigma, 3, **kw))
+    ms = cuda_ms(lambda: sampled_softmax_stats(mu, None, 3, **kw), reps=20)
     plain_ms = cuda_ms(lambda: sampled_softmax_stats_reference(
-        mu, sigma, 3, **kw), reps=2, warmup=1)
+        mu, None, 3, **kw), reps=2, warmup=1)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    mu32 = mu.float()
+    sigma32 = torch.exp(log_var.float() / 2.0)
 
     def loop():
         sum_p = torch.zeros((n, c), device="cuda")
@@ -1250,29 +1376,31 @@ def time_k3(launches, grouped, vols):
         for j in range(N_MEMBERS * N_ALEATORIC):
             im = j // N_ALEATORIC
             eps = torch.randn((n, c), generator=gen, device="cuda")
-            probs = torch.softmax(mu[:, im] + sigma[:, im] * eps, dim=-1)
+            probs = torch.softmax(mu32[:, im] + sigma32[:, im] * eps, dim=-1)
             sum_p = sum_p + probs
             sum_ent = sum_ent + entropy(probs, class_axis=-1)
         return sum_p, sum_ent
 
     loop_ms = cuda_ms(loop, reps=3)
-    bytes_moved = 4 * (2 * n * N_MEMBERS * c) + 4 * (c * n + n)
+    # read the bf16 head once (mu and s), write sum_p and sum_ent
+    bytes_moved = 2 * (2 * n * N_MEMBERS * c) + 4 * (c * n + n)
     flops = k3_operations(n, N_MEMBERS, c, N_ALEATORIC, "philox")
     bound_ms, bound_by = bound(bytes_moved, flops, "float32")
-    # the kernel's own work, beside the bound (not the bound)
-    written = k3_operations(n, N_MEMBERS, c, N_ALEATORIC, "philox",
-                            as_written=True)
-    return {"name": "sampled_softmax_stats", "route": "triton",
-            "source": "values_tpu_torch/ops/kernels/sampling.py",
+    sfu = k3_sfu_operations(n, N_MEMBERS, c, N_ALEATORIC)
+    clock_mhz = max_sm_clock_mhz()
+    mufu_ms = (None if clock_mhz is None
+               else sfu / (SFU_PER_CLOCK * clock_mhz * 1e6) * 1e3)
+    return {"name": "sampled_softmax_stats", "route": "cuda",
+            "source": "values_tpu_torch/csrc/sampling.cu",
             "replaces": "values_tpu/ops/pallas/sampling.py:135",
             "launches": launches["sampled_softmax_stats"],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "loop_ms": loop_ms, "operations": flops,
-            "operations_as_written": written,
-            "as_written_ms": written / PEAK_FLOPS["float32"] * 1e3,
-            "shape": f"N={n} M={N_MEMBERS} C={c} n={N_ALEATORIC} f32 "
-                     "strided views, philox"}
+            "sfu_operations": sfu, "mufu_ms": mufu_ms,
+            "max_sm_clock_mhz": clock_mhz,
+            "shape": f"N={n} M={N_MEMBERS} C={c} n={N_ALEATORIC} bf16 "
+                     "mu and log_var views of the head, philox"}
 
 
 def time_k1b(launches):
@@ -1316,10 +1444,13 @@ def time_k1b(launches):
             g, views["x"], views["w"], None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
             False, [0, 0, 0], 1, mask)
 
-    ms = cuda_ms(lambda: dx("kernel"))
+    # 10 back-to-back calls per sample, for each of them alike: one call
+    # is shorter than autograd's host time around it
+    ms = cuda_ms(lambda: dx("kernel"), inner=10)
     plain_ms = cuda_ms(lambda: dx("plain"), reps=5)
-    library_ms = cuda_ms(lambda: library([True, False, False]))
-    dw_library_ms = cuda_ms(lambda: library([False, True, False]))
+    library_ms = cuda_ms(lambda: library([True, False, False]), inner=10)
+    dw_library_ms = cuda_ms(lambda: library([False, True, False]),
+                            inner=10)
     vox = b * PATCH ** 3
     # read dy and the saved output, write dx; the weight once
     bytes_moved = 2 * vox * (cout + cout + cin) + 2 * weight.numel()
@@ -1547,19 +1678,35 @@ def time_k1_layers(grouped, vols):
         json.dump(rows, fh, indent=1)
 
 
-def profile_batch(score, args, label: str, filename: str):
+# what must not run over the logits or the head outside K2 and K3: a
+# cast, an exp, a softmax or a division of a tensor that large
+HEAD_OPS = ("aten::_to_copy", "aten::exp", "aten::softmax",
+            "aten::_softmax", "aten::div")
+
+
+def profile_batch(score, args, label: str, filename: str, head_numel: int):
     """Device time of one batch, ``score(*args)``, by kernel, from
-    torch.profiler; the table is written to build/chip_smoke/<filename>."""
+    torch.profiler; the table is written to build/chip_smoke/<filename>.
+    Raises if an operator of HEAD_OPS takes a tensor of ``head_numel``
+    elements or more (the logits, or one half of the aleatoric head)."""
+    import math
     import torch
     from torch.profiler import ProfilerActivity, profile
     score(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         score(*args)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    over_head = sorted({(e.name, str(e.input_shapes[0]))
+                        for e in prof.events() if e.name in HEAD_OPS
+                        and e.input_shapes and e.input_shapes[0]
+                        and math.prod(e.input_shapes[0]) >= head_numel})
+    if over_head:
+        raise AssertionError(f"profile {label}: operators over the head or "
+                             f"the logits: {over_head}")
     table = prof.key_averages()
     kernels = [e for e in table if "CUDA" in str(e.device_type)
                and e.self_device_time_total > 0]
@@ -1568,13 +1715,14 @@ def profile_batch(score, args, label: str, filename: str):
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, filename), "w") as fh:
         fh.write(table.table(sort_by="self_device_time_total",
-                             row_limit=40))
+                             row_limit=40, max_name_column_width=120))
     if not busy:
         log(f"profile {label}: no device time recorded (not measured)")
         return
     log(f"profile of one {label} batch ({BATCH} volumes): device kernels "
         f"{busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall, idle share "
-        f"{1 - busy / wall_us:.3f} (profiler on)")
+        f"{1 - busy / wall_us:.3f} (profiler on); no cast, exp, softmax or "
+        f"division of {head_numel} or more elements")
     for e in kernels[:10]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
             f"{100 * e.self_device_time_total / busy:5.1f}%  "
@@ -1605,19 +1753,23 @@ def main() -> int:
     log(smi)
 
     with phase("build", smi):
-        t0 = time.perf_counter()
-        k1_lib = conv3d.load_kernel()
-        t1 = time.perf_counter()
-        entropy.fused_entropy(torch.full((2, 2, 256), 0.5, device="cuda"))
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        half = torch.full((256, 2, 2), 0.5, device="cuda")
-        sampling.sampled_softmax_stats(half, half, 0, n_samples=1)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        log(f"build: K1 nvcc {t1 - t0:.1f} s, K2 triton JIT {t2 - t1:.1f} s, "
-            f"K3 triton JIT {t3 - t2:.1f} s; card {smi}")
+        # one nvcc per library, both started together
+        from concurrent.futures import ThreadPoolExecutor
+
+        def timed(load):
+            t0 = time.perf_counter()
+            return load(), time.perf_counter() - t0
+
+        with ThreadPoolExecutor(2) as pool:
+            k1_build = pool.submit(timed, conv3d.load_kernel)
+            stats_build = pool.submit(timed, sampling.load_kernel)
+            (k1_lib, k1_s), (stats_lib, stats_s) = (k1_build.result(),
+                                                    stats_build.result())
+        entropy.load_kernel()
+        log(f"build: K1 nvcc {k1_s:.1f} s, K2 + K3 nvcc {stats_s:.1f} s "
+            f"(in parallel); card {smi}")
         check_k1_build(k1_lib)
+        k3_sass = check_stats_build(stats_lib)
 
     with phase("K1 check", smi):
         check_k1()
@@ -1642,12 +1794,24 @@ def main() -> int:
                    time_k1b(train_runs["f32"][2]),
                    time_k2(launches, grouped, vols),
                    time_k3(a_launches, a_grouped, a_vols)]
+        kernels[-1]["sass"] = k3_sass
         for k in kernels:
-            extra = (f", stock-torch loop {k['loop_ms']:.3f} ms; "
-                     f"{k['operations'] / 1e9:.2f} G operations needed, "
-                     f"{k['operations_as_written'] / 1e9:.2f} G as the "
-                     f"kernel is written ({k['as_written_ms']:.3f} ms at "
-                     "the f32 peak)" if "loop_ms" in k else "")
+            extra = ""
+            if "loop_ms" in k:
+                mufu = ("not computed (no clock read)"
+                        if k["mufu_ms"] is None else
+                        f"{k['mufu_ms']:.3f} ms at the maximum SM clock, "
+                        f"{k['max_sm_clock_mhz']:.0f} MHz")
+                extra = (f", stock-torch loop {k['loop_ms']:.3f} ms; "
+                         f"{k['operations'] / 1e9:.2f} G operations and "
+                         f"{k['sfu_operations'] / 1e9:.3f} G SFU "
+                         f"operations needed, SFU floor (computed) "
+                         f"{mufu}")
+            if "probs_ms" in k:
+                extra = (f"; {k['probs_shape']}: {k['probs_ms']:.3f} ms, "
+                         f"bound {k['probs_bound_ms']:.3f} ms "
+                         f"({k['probs_bound_by']}), plain "
+                         f"{k['probs_plain_ms']:.3f} ms")
             if "dw_library_ms" in k:
                 extra = (f"; dW at the same conv (cuDNN weight gradient) "
                          f"{k['dw_library_ms']:.3f} ms")
@@ -1668,13 +1832,14 @@ def main() -> int:
         time_k1_regimes()
         score, _ = make_scorer(N_MEMBERS, PATCH, agg_patch=AGG_PATCH,
                                threshold=THRESHOLD, dtype=torch.bfloat16)
+        head_numel = vols.shape[0] * PATCH ** 3 * N_MEMBERS * CLASSES
         profile_batch(score, (grouped, vols, gt), "deterministic",
-                      "profile_main_path.txt")
+                      "profile_main_path.txt", head_numel)
         a_score, _ = make_aleatoric_scorer(
             N_MEMBERS, PATCH, n_aleatoric_samples=N_ALEATORIC,
             agg_patch=AGG_PATCH, threshold=THRESHOLD, dtype=torch.bfloat16)
         profile_batch(a_score, (a_grouped, a_vols, a_gt, 9), "aleatoric",
-                      "profile_aleatoric_path.txt")
+                      "profile_aleatoric_path.txt", head_numel)
     log(f"headline: {vps:.2f} volumes/s deterministic, {a_vps:.2f} "
         f"volumes/s aleatoric ({N_ALEATORIC} samples) (ensemble-{N_MEMBERS},"
         f" {PATCH}^3, bf16, batch {BATCH}); training "

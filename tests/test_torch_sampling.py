@@ -1,6 +1,6 @@
 """K3 of the port (values_tpu_torch.ops.kernels.sampling): the bit
 sources, the draw and the plain version against the JAX package's
-sampling kernel (interpret mode) and its jnp oracle; the Triton kernel
+sampling kernel (interpret mode) and its jnp oracle; the CUDA kernel
 against the plain version where a card is present. The module imports
 jax but not flax, so it collects on the card's machine."""
 import jax.numpy as jnp
@@ -202,6 +202,93 @@ def test_philox_normals_and_streams():
     assert torch.equal(wide[:, 0, 0, 4], words[0])
 
 
+@pytest.mark.parametrize("c,n_samples", [(2, 3), (3, 5)])
+def test_plain_philox_draws_use_every_word_of_the_new_counter(c, n_samples):
+    """Draw (i, c) of member m takes word j mod 4 of Philox at counter
+    (n, m, j // 4, 0), j = i * C + c; with an odd n_samples the last call
+    is ragged. Word for word against ``philox4x32``."""
+    n_vox, m, seed = 37, 3, 2 ** 32 + 99
+    bits = sampling.sample_bits_reference(n_vox, m, c, seed,
+                                          n_samples=n_samples)
+    assert bits.shape == (n_vox, m, n_samples, c)
+    vox = torch.arange(n_vox)
+    zero = torch.zeros(n_vox, dtype=torch.long)
+    for im in range(m):
+        calls = [sampling.philox4x32(vox, zero + im, zero + g, zero,
+                                     seed & sampling.MASK32, seed >> 32)
+                 for g in range(-(-n_samples * c // 4))]
+        for i in range(n_samples):
+            for cls in range(c):
+                g, word = divmod(i * c + cls, 4)
+                assert torch.equal(bits[:, im, i, cls], calls[g][word])
+
+
+@pytest.mark.parametrize("bits", sampling.BITS)
+def test_log_var_form_equals_sigma_form(bits):
+    """``log_var=s`` draws what ``sigma=exp(s / 2)`` draws, f32 atol 1e-6
+    (the same float32 sigma on both sides)."""
+    mu, sigma = _heads(5, b=8)
+    log_var = (2.0 * np.log(sigma + 0.05)).astype(np.float32)
+    kw = dict(n_samples=NS, bits=bits, spatial=(D, H, W), counter_rows=SD)
+    t_mu = torch.from_numpy(mu.reshape(-1, M, C))
+    t_lv = torch.from_numpy(log_var.reshape(-1, M, C))
+    got = sampling.sampled_softmax_stats(t_mu, None, SEED, log_var=t_lv, **kw)
+    want = sampling.sampled_softmax_stats(t_mu, torch.exp(t_lv / 2.0), SEED,
+                                          **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("form", ["sigma", "log_var"])
+def test_bf16_inputs_give_their_float32_upcast(form):
+    """bfloat16 mu and scale give exactly the result of their float32
+    upcast: the plain version computes in float32 either way."""
+    mu, sigma = _heads(6, b=8)
+    head = torch.from_numpy(np.concatenate([mu, sigma], -1)
+                            .reshape(-1, M, 2 * C)).to(torch.bfloat16)
+    kw = dict(n_samples=NS)
+    views = head[..., :C], head[..., C:]
+    up = tuple(v.float() for v in views)
+
+    def call(mu_t, scale):
+        if form == "sigma":
+            return sampling.sampled_softmax_stats(mu_t, scale, SEED, **kw)
+        return sampling.sampled_softmax_stats(mu_t, None, SEED,
+                                              log_var=scale, **kw)
+
+    got, want = call(*views), call(*up)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("which", ["both", "neither"])
+def test_exactly_one_of_sigma_and_log_var(which):
+    mu = torch.zeros(16, M, C)
+    scale = torch.ones(16, M, C)
+    sigma, log_var = (scale, scale) if which == "both" else (None, None)
+    for fn in (sampling.sampled_softmax_stats,
+               sampling.sampled_softmax_stats_reference):
+        with pytest.raises(ValueError, match="exactly one"):
+            fn(mu, sigma, SEED, n_samples=1, log_var=log_var)
+
+
+def test_sample_bits_device_none_means_the_card():
+    """``device=None`` resolves to the CUDA card, as every entry of the
+    port does, and raises without one; ``device="cpu"`` is the plain
+    version."""
+    want = sampling.sample_bits_reference(20, 2, 2, 5, n_samples=2)
+    assert torch.equal(sampling.sample_bits(20, 2, 2, 5, n_samples=2,
+                                            device="cpu"), want)
+    if torch.cuda.is_available():
+        got = sampling.sample_bits(20, 2, 2, 5, n_samples=2)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sampling.sample_bits(20, 2, 2, 5, n_samples=2)
+
+
 def test_streaming_finalize_matches_jax():
     """The port's (C, N) finalize against JAX's on the transposed layout
     (class axis -1), f32 atol 1e-6."""
@@ -255,21 +342,24 @@ def test_default_counter_rows_is_the_jax_default():
 def test_kernel_matches_plain_on_cuda(bits, monkeypatch):
     """Bits exactly; sums at atol 1e-4, rtol 1e-5 (the kernel's float32
     transcendentals and FMAs differ from PyTorch's in the last ulps, over
-    M*n terms of at most 1 and log C). A smaller block draws the same
-    bits and gives the same sums (atol 1e-6: only the compiler's
-    instruction choice can differ)."""
+    M*n terms of at most 1 and log C), in the sigma form, the log_var
+    form and in bfloat16. A smaller block draws the same bits and gives
+    the same sums (atol 1e-6: only the compiler's instruction choice can
+    differ)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     mu, sigma = _heads(4)
     n_vox = mu.size // (M * C) - 37                      # a ragged N
-    head = torch.from_numpy(np.concatenate([mu, sigma], -1)
-                            .reshape(-1, M, 2 * C)[:n_vox]).cuda()
-    views = head[..., :C], head[..., C:]
+    log_var = 2.0 * np.log(sigma + 0.05)
+    head = torch.from_numpy(np.concatenate([mu, sigma, log_var], -1)
+                            .astype(np.float32)
+                            .reshape(-1, M, 3 * C)[:n_vox]).cuda()
     spatial = (D, H, W) if bits == "philox" else None
     if bits == "counter":   # the counter geometry needs whole volumes
         n_vox = (n_vox // (D * H * W)) * D * H * W
-        views = tuple(v[:n_vox] for v in views)
+        head = head[:n_vox]
         spatial = (D, H, W)
+    views = head[..., :C], head[..., C:2 * C]
     kw = dict(n_samples=NS, bits=bits, spatial=spatial, counter_rows=SD)
     got_bits = sampling.sample_bits(n_vox, M, C, SEED, device="cuda", **kw)
     want_bits = sampling.sample_bits_reference(n_vox, M, C, SEED,
@@ -281,6 +371,14 @@ def test_kernel_matches_plain_on_cuda(bits, monkeypatch):
     want = sampling.sampled_softmax_stats_reference(*views, SEED, **kw)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-5)
+    for dtype in (torch.float32, torch.bfloat16):
+        mu_t, lv = head[..., :C].to(dtype), head[..., 2 * C:].to(dtype)
+        got_lv = sampling.sampled_softmax_stats(mu_t, None, SEED,
+                                                log_var=lv, **kw)
+        want_lv = sampling.sampled_softmax_stats_reference(
+            mu_t, None, SEED, log_var=lv, **kw)
+        for g, w in zip(got_lv, want_lv):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-5)
     monkeypatch.setattr(sampling, "BLOCK", 64)
     assert torch.equal(sampling.sample_bits(n_vox, M, C, SEED,
                                             device="cuda", **kw), want_bits)

@@ -6,8 +6,8 @@ doing ``streaming_update``'s work; ``_score_from_stats`` and
 ``make_packed_scorer`` :118-165; ``make_packed_aleatoric_scorer``
 :210-293) and of the softmax + statistics step of
 ``values_tpu/ops/packed_stats.py:72-88``. One call runs the grouped
-ensemble forward (K1 for every 3x3x3 conv), the softmax in float32, the
-C2 statistics over the members (K2), the argmax and micro Dice against
+ensemble forward (K1 for every 3x3x3 conv), the softmax in float32 and
+the C2 statistics over the members (both K2), the argmax and micro Dice against
 the ground truth, and the three C3 aggregations of each uncertainty map,
 and returns the (10, B) score matrix in :func:`score_rows` order. The
 aleatoric scorer replaces the softmax and K2 by members x samples logit
@@ -55,12 +55,14 @@ def streaming_finalize(carry, n_samples: int, class_axis: int = 0) -> dict:
 
 def ensemble_statistics(logits: torch.Tensor) -> dict:
     """Logits (B, D, H, W, M, C) -> float32 softmax over C, then the C2
-    statistics over the M members through K2. Returns ``mean_softmax``
-    (C, N) and the PE/EE/MI maps (N,), N = B*D*H*W voxels."""
+    statistics over the M members, both in K2's logits form. Returns
+    ``mean_softmax`` (C, N) and the PE/EE/MI maps (N,) in float32, N =
+    B*D*H*W voxels."""
     m, c = logits.shape[-2:]
-    probs = torch.softmax(logits.to(torch.float32), dim=-1)
-    # (N, M, C) channels-last -> an (M, C, N) view; K2 takes strides
-    return fused_entropy(probs.reshape(-1, m, c).permute(1, 2, 0))
+    # an (M, C, N) view; the forward leaves its logits grouped by member,
+    # which is K2's sample-major layout, so the kernel reads them as is
+    return fused_entropy(logits.reshape(-1, m, c).permute(1, 2, 0),
+                         logits=True)
 
 
 def score_from_statistics(stats: Mapping[str, torch.Tensor],
@@ -158,9 +160,10 @@ def make_aleatoric_scorer(members: int, patch: int, *,
     Returns ``(score_fn, rows)`` with ``score_fn(grouped_weights,
     volumes, gt, seed) -> (10, B) float32``; weights, volumes and gt as
     for :func:`make_scorer`, the weights with a ``final_aleatoric`` head.
-    One grouped forward gives (mu, s) per member; ``sigma = exp(s / 2)``;
-    K3 draws ``n_aleatoric_samples`` logit samples per member from the
-    int ``seed`` and accumulates their softmax and entropy; the C2
+    One grouped forward gives (mu, s) per member; K3 takes them as the
+    forward leaves them, forms ``sigma = exp(s / 2)`` in float32, draws
+    ``n_aleatoric_samples`` logit samples per member from the int
+    ``seed`` and accumulates their softmax and entropy; the C2
     statistics over members x samples then feed Dice and C3. No (S, ...)
     stack is ever held.
 
@@ -185,14 +188,14 @@ def make_aleatoric_scorer(members: int, patch: int, *,
         weights = cast_weights(grouped_weights, dtype, device)
         with torch.no_grad():
             out = grouped_forward_fused(weights, volumes.to(dtype), members)
-            # (B, D, H, W, M, 2C): the first C channels are mu, the last s
-            out = out.to(torch.float32)
+            # (B, D, H, W, M, 2C): the first C channels are mu, the last s;
+            # K3 reads both in the forward's type and forms sigma itself
             c = out.shape[-1] // 2
-            mu = out[..., :c].reshape(-1, members, c)
-            sigma = torch.exp(out[..., c:] / 2.0).reshape(-1, members, c)
+            head = out.reshape(-1, members, 2 * c)
             carry = sampled_softmax_stats(
-                mu, sigma, seed, n_samples=n, bits=bits,
-                spatial=(patch,) * 3, counter_rows=counter_rows)
+                head[..., :c], None, seed, log_var=head[..., c:],
+                n_samples=n, bits=bits, spatial=(patch,) * 3,
+                counter_rows=counter_rows)
             stats = streaming_finalize(carry, members * n)
             return score_from_statistics(stats, gt, agg_patch=agg_patch,
                                          threshold=threshold,

@@ -22,6 +22,9 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# K2 (fused_entropy) and K3 (sampled_softmax_stats) build as one library
+STATS_LIBRARY = "c2_stats"
+STATS_SOURCES = ("entropy.cu", "sampling.cu")
 
 
 def _nvcc() -> str:

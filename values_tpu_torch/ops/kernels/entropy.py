@@ -1,96 +1,111 @@
-"""K2: one pass over a softmax stack giving mean softmax, PE, EE and MI.
+"""K2: one pass over a stack of samples giving mean softmax, PE, EE and MI.
 
 Port of ``values_tpu/ops/pallas/entropy.py::_make_kernel`` (entry
-``fused_entropy_pallas``) to a Triton kernel. For a stack (S, C, N) of S
-softmax samples over C classes at N voxels it returns
+``fused_entropy_pallas``) to a CUDA C++ kernel for Hopper
+(``values_tpu_torch/csrc/entropy.cu``, built with K3 into one library).
+For a stack (S, C, N) of S softmax samples over C classes at N voxels it
+returns
 
 - ``mean_softmax`` (C, N): m = (1/S) sum_s p_s;
 - ``pred_entropy`` (N,): PE = -sum_c m log m;
 - ``expected_entropy`` (N,): EE = -(1/S) sum_s sum_c p log p;
 - ``mutual_information`` (N,): MI = PE - EE;
 
-where a term with p == 0 counts 0. Outputs have the stack's type; the
-sums run in float32.
+where a term with p == 0 counts 0. The sums run in float32.
 
-What bounds it on an H100: it reads S*C values and writes C+3 per voxel
-and does a few dozen operations per value, so it is bound by memory
-bytes. Each program loads a block of voxels for all S*C (sample, class)
-pairs once and keeps the sums in registers, so every input byte is read
-once and every output byte written once. The wrapper passes strides, so
-the scorer hands over a permuted view of its channels-last (N, S, C)
-softmax without a copy.
+Two forms: the probability form (the JAX kernel's contract; outputs in
+the stack's type), and with ``logits=True`` the logits form, which takes
+the forward's logits and applies the float32 softmax over C to each
+sample first (outputs float32), so the scorer hands over its bf16 logits
+with no cast and no softmax pass.
+
+The kernel reads one layout of an (S, C, N) view, sample-major: each
+sample's N*C values contiguous with the classes innermost (strides
+(ss, 1, C), ss >= N*C), which is how the forward's grouped 1x1x1 head
+leaves its logits. It stages contiguous runs through shared memory (see
+the source for the design and what bounds it). The wrapper first copies
+a stack of any other strides, or one not 16-byte aligned, into that
+layout: one extra read and write of the stack, which the scorer's view
+never pays.
 
 :func:`fused_entropy` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors; it never falls back from one to the other.
-``triton`` is imported only when the kernel is launched.
+The library is built at the first launch.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
-import os
 from typing import Dict
 
 import torch
 
 from ..uncertainty import fused_sample_statistics
-from .build import BUILD_DIR
+from .build import STATS_LIBRARY, STATS_SOURCES, load_library
 
-BLOCK = 1024
 _DTYPES = (torch.float32, torch.bfloat16)
+MAX_CLASSES = 16              # entropy.cu's kMaxC
+TILE = 256                    # voxel rows a block stages (entropy.cu's kTile)
+SMEM_LIMIT = 232448           # bytes of shared memory a block may use
 
 
-def fused_entropy_reference(stack: torch.Tensor) -> Dict[str, torch.Tensor]:
+def fused_entropy_reference(stack: torch.Tensor, *, logits: bool = False
+                            ) -> Dict[str, torch.Tensor]:
     """The plain PyTorch version of K2 on an (S, C, N) stack: the port's
     :func:`values_tpu_torch.ops.uncertainty.fused_sample_statistics` in
-    float32 (float64 for float64 input), returned in the stack's type."""
+    float32 (float64 for float64 input), returned in the stack's type;
+    with ``logits``, of ``torch.softmax`` over C of the stack in that
+    type, returned in that type."""
     compute = torch.float64 if stack.dtype == torch.float64 else torch.float32
-    stats = fused_sample_statistics(stack.to(compute), class_axis=1)
-    return {k: v.to(stack.dtype) for k, v in stats.items()}
+    x = stack.to(compute)
+    if logits:
+        x = torch.softmax(x.movedim(1, -1), dim=-1).movedim(-1, 1)
+    stats = fused_sample_statistics(x, class_axis=1)
+    out = compute if logits else stack.dtype
+    return {k: v.to(out) for k, v in stats.items()}
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    # keep Triton's compile cache beside the CUDA builds, in the checkout
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def fused_entropy_kernel(stack_ptr, mean_ptr, pe_ptr, ee_ptr, mi_ptr, n,
-                             stride_s, stride_c, stride_n,
-                             S: tl.constexpr, C: tl.constexpr,
-                             BLOCK_N: tl.constexpr):
-        offs = tl.program_id(0) * BLOCK_N + tl.arange(0, BLOCK_N)
-        mask = offs < n
-        inv_s = 1.0 / S
-        pe = tl.zeros([BLOCK_N], dtype=tl.float32)
-        ee = tl.zeros([BLOCK_N], dtype=tl.float32)
-        for c in tl.static_range(C):
-            m = tl.zeros([BLOCK_N], dtype=tl.float32)
-            for s in tl.static_range(S):
-                p = tl.load(stack_ptr + s * stride_s + c * stride_c
-                            + offs * stride_n, mask=mask, other=0.0
-                            ).to(tl.float32)
-                m += p * inv_s
-                ee += tl.where(p > 0, p * tl.log(tl.where(p > 0, p, 1.0)),
-                               0.0)
-            tl.store(mean_ptr + c * n + offs,
-                     m.to(mean_ptr.dtype.element_ty), mask=mask)
-            pe += tl.where(m > 0, m * tl.log(tl.where(m > 0, m, 1.0)), 0.0)
-        pe = -pe
-        ee = -(ee * inv_s)
-        out_ty = pe_ptr.dtype.element_ty
-        tl.store(pe_ptr + offs, pe.to(out_ty), mask=mask)
-        tl.store(ee_ptr + offs, ee.to(out_ty), mask=mask)
-        tl.store(mi_ptr + offs, (pe - ee).to(out_ty), mask=mask)
-
-    return triton, fused_entropy_kernel
+def load_kernel() -> ctypes.CDLL:
+    """Build (at first use) and load the K2 + K3 library; declare K2's
+    entry."""
+    lib = load_library(STATS_LIBRARY, STATS_SOURCES)
+    fn = lib.fused_entropy_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p])
+    return lib
 
 
-def fused_entropy(stack: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """K2 on an (S, C, N) stack of any strides (dict layout above)."""
+def _aligned_stride(stack: torch.Tensor) -> int:
+    """N*C rounded up to a whole number of 16-byte chunks, in elements."""
+    _, c, n = stack.shape
+    per_chunk = 16 // stack.element_size()
+    return -(-n * c // per_chunk) * per_chunk
+
+
+def _sample_stride(stack: torch.Tensor) -> int:
+    """The stride between samples, in elements, when ``stack`` is
+    sample-major and the kernel can stage it as it is (strides (ss, 1, C)
+    with ss >= N*C, every run 16-byte aligned); else 0."""
+    s, c, n = stack.shape
+    ss, sc, sn = stack.stride()
+    if s == 1:                            # the stride is never used
+        ss = _aligned_stride(stack)
+    if (sc == 1 or c == 1) and (sn == c or n == 1) and ss >= n * c \
+            and (ss * stack.element_size()) % 16 == 0 \
+            and stack.data_ptr() % 16 == 0:
+        return ss
+    return 0
+
+
+def fused_entropy(stack: torch.Tensor, *, logits: bool = False
+                  ) -> Dict[str, torch.Tensor]:
+    """K2 on an (S, C, N) stack of probabilities, or of logits with
+    ``logits=True`` (dict layout above). A CUDA stack that is not
+    sample-major is first copied into that layout."""
     if stack.device.type == "cpu":
-        return fused_entropy_reference(stack)
+        return fused_entropy_reference(stack, logits=logits)
     if stack.device.type != "cuda":
         raise ValueError(f"fused_entropy runs on cuda or cpu, not "
                          f"{stack.device}")
@@ -100,19 +115,31 @@ def fused_entropy(stack: torch.Tensor) -> Dict[str, torch.Tensor]:
     if stack.ndim != 3:
         raise ValueError(f"stack: shape {tuple(stack.shape)} is not (S, C, N)")
     s, c, n = stack.shape
-    last = sum((dim - 1) * stride
-               for dim, stride in zip(stack.shape, stack.stride()))
-    if last >= 2 ** 31:
-        raise ValueError("fused_entropy indexes with 32-bit offsets; the "
-                         "stack spans more than 2**31 elements")
-    mean = torch.empty((c, n), dtype=stack.dtype, device=stack.device)
-    pe, ee, mi = (torch.empty((n,), dtype=stack.dtype, device=stack.device)
+    smem = 2 * TILE * s * c * stack.element_size()
+    if not (1 <= c <= MAX_CLASSES and n >= 1 and smem <= SMEM_LIMIT
+            and n * c < 2 ** 31):
+        raise ValueError(f"fused_entropy takes 1 to {MAX_CLASSES} classes "
+                         f"and at most {SMEM_LIMIT // (2 * TILE)} bytes a "
+                         f"voxel, not S={s} x C={c} x N={n} in {stack.dtype}")
+    rows, sample_stride = stack, _sample_stride(stack)
+    if sample_stride == 0:                # copy to (S, N, C), padded rows
+        sample_stride = _aligned_stride(stack)
+        rows = torch.empty((s, sample_stride), dtype=stack.dtype,
+                           device=stack.device)
+        rows[:, :n * c].view(s, n, c).copy_(stack.permute(0, 2, 1))
+    out = torch.float32 if logits else stack.dtype
+    mean = torch.empty((c, n), dtype=out, device=stack.device)
+    pe, ee, mi = (torch.empty((n,), dtype=out, device=stack.device)
                   for _ in range(3))
-    triton, kernel = _kernel()
+    lib = load_kernel()
     with torch.cuda.device(stack.device):
-        kernel[(triton.cdiv(n, BLOCK),)](
-            stack, mean, pe, ee, mi, n, *stack.stride(), S=s, C=c,
-            BLOCK_N=BLOCK, num_warps=4)
+        rc = lib.fused_entropy_launch(
+            int(stack.dtype == torch.bfloat16), int(logits), rows.data_ptr(),
+            mean.data_ptr(), pe.data_ptr(), ee.data_ptr(), mi.data_ptr(), n,
+            s, c, sample_stride,
+            torch.cuda.current_stream(stack.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_entropy launch failed with CUDA error {rc}")
     fused_entropy.launches += 1
     return {"mean_softmax": mean, "pred_entropy": pe,
             "expected_entropy": ee, "mutual_information": mi}
