@@ -23,7 +23,8 @@ Phases, each of which raises on failure:
    form and in bfloat16; sigma = 0 exactly softmax);
 5b. hold K1b (K1's autograd Function) against autograd through K1's
    plain version: dx, dW and db, f32 and bf16, with statistics and with
-   the leaky and ReLU epilogues;
+   the leaky and ReLU epilogues, at G = 1, 2 and 5 (the joint ensemble
+   step's groups);
 6. run the deterministic path at full width -- the 5-member UNet3D
    ensemble (2 classes, initial filter size 8) scoring batches of 32
    64^3 volumes through ``make_scorer`` -- count each kernel's launches
@@ -38,11 +39,27 @@ Phases, each of which raises on failure:
    epoch at f32 and one at bf16, each with validation and a checkpoint
    that the score CLI then scores, launches counted; the f32 run's first
    step held against the plain path (K1b's plain version in every conv);
+8c. joint deep-ensemble training (``EnsembleTrainer``, 5 members as
+   channel groups, each with its own seeded stream) on ``softmax_config``
+   at its published widths over the same ``Case_1``, 3 steps at f32 and
+   3 at bf16, with 18 K1 and 17 K1b-dx launches at G = 5 counted per
+   step; the first f32 step held against 5 independent ``Experiment``
+   steps; the 5 members written as checkpoints;
+8d. the sliding-window ``test_3d`` CLI on those checkpoints at f32 and
+   bf16: the ``Case_1`` validation split (64^3, one window a volume) and
+   4 volumes of 128^3 (8 windows each) at ``--test_batch_size 3``; each
+   output tree checked file by file, 18 K1 launches counted per chunk,
+   the 128^3 f32 run held against the plain path (per-member UNet3D
+   modules through the same windowing and carrier);
+8e. ``SlidingWindowEngine`` with the aleatoric members of phase 7 over the
+   128^3 volumes at f32, held against the plain path given the same
+   normals; the engine's windows and volumes per second at f32 and bf16,
+   and a profile of one 12-window chunk;
 9. time each kernel at its path's shape beside its bound, its plain
    version and a library yardstick (K3: the stock-torch sampling loop,
    and its SFU floor, computed at the card's maximum SM clock; K2: both
    forms; K1b: cuDNN's input gradient), time and profile a training
-   step, time
+   step, time K1's f32 regime at the test_3d chunk's largest conv, time
    K1 at each of the 18 convs (with its regime) and its shallow and
    tile16 kernels against each other where plan() chooses between them,
    and break one batch of each scoring path down by device kernel with
@@ -129,6 +146,20 @@ def read_launches() -> dict:
 def expect_launches(launches: dict, want: dict, what: str) -> None:
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, expected {want}")
+
+
+def regimes_since(before: dict) -> dict:
+    """K1's launches by regime since the ``regime_launches`` ``before``."""
+    from values_tpu_torch.ops.kernels.conv3d import conv3d_fused
+    return {k: v - before[k] for k, v in conv3d_fused.regime_launches.items()
+            if v != before[k]}
+
+
+def expect_f32_regime(ran: dict, f32: bool, what: str) -> None:
+    """A float32 run launches K1's ``f32`` regime only, a bfloat16 run
+    never."""
+    if f32 != (set(ran) == {"f32"}):
+        raise AssertionError(f"{what}: K1 regimes {ran}")
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2, inner: int = 1) -> float:
@@ -257,8 +288,7 @@ def check_k1():
             regime = "f32" if dtype == torch.float32 else regime
             before = dict(conv3d_fused.regime_launches)
             got = conv3d_fused(x, weight, bias, g, **kw)
-            ran = {k: v - before[k] for k, v in
-                   conv3d_fused.regime_launches.items() if v != before[k]}
+            ran = regimes_since(before)
             if ran != {regime: 1}:
                 raise AssertionError(f"K1 {dtype} case {name!r}: regime "
                                      f"launches {ran}, expected {regime}")
@@ -538,7 +568,12 @@ def k1b_grads(fn, x, weight, bias, groups, case, gy, g1, g2):
 # (name, dtype, B, volume, G, Cin, Cout)
 K1B_CASES = [("B 2, 32^3, G 2, 16 -> 8", "float32", 2, 32, 2, 16, 8),
              ("expand_1_1: B 8, 64^3, G 1, 16 -> 8", "bfloat16", 8, 64, 1,
-              16, 8)]
+              16, 8),
+             # the joint ensemble step's expand_1_1 at G = M = 5
+             ("joint expand_1_1: B 8, 64^3, G 5, 16 -> 8", "float32", 8, 64,
+              5, 16, 8),
+             ("joint expand_1_1: B 8, 64^3, G 5, 16 -> 8", "bfloat16", 8,
+              64, 5, 16, 8)]
 # Tolerances: float32 atol 1e-4 max|g| -- dx, dW and db each add up to
 # 27 Cout (dx) or B D H W (dW, db) products in another order than cuDNN
 # does on the plain side (TF32 off); bfloat16 K1's rule, 2**-7 |ref| +
@@ -1159,6 +1194,565 @@ def training_path(card: str):
     return root, runs, steps
 
 
+# -- joint deep-ensemble training ---------------------------------------------
+
+JOINT_STEPS = 3
+
+
+def joint_batches(cfg, root: str, members: int):
+    """JOINT_STEPS joint batches on the card, member m's rows from its own
+    stream: the config's toy datamodule with seed + m, one epoch each."""
+    import torch
+    from values_tpu_torch.config import instantiate
+    streams = []
+    for m in range(members):
+        dm = instantiate(cfg.datamodule, data_input_dir=root,
+                         batch_size=cfg.batch_size,
+                         seed=int(cfg.datamodule.get("seed", 42)) + m)
+        dm.prepare_data()
+        dm.setup()
+        streams.append(list(dm.train_dataloader())[:JOINT_STEPS])
+    return [{key: torch.from_numpy(np.stack([s[i][key] for s in streams]))
+             .cuda() for key in ("data", "seg")} for i in range(JOINT_STEPS)]
+
+
+def _grouped_tree(names, leaves):
+    tree = {}
+    for (module, leaf), value in zip(names, leaves):
+        tree.setdefault(module, {})[leaf] = value
+    return tree
+
+
+def joint_step_against_experiments(trainer, state, batch, cfg, card: str):
+    """The first f32 joint step against N_MEMBERS independent port
+    Experiments (each on its member's initial weights and stream, K1 and
+    K1b at G = 1): each member's loss within rtol 2e-4, and its gradient,
+    split off the joint one, within the limits of the first training
+    step's check (``first_step_against_plain``): 1e-3 of the norm over
+    all leaves and 1e-2 of each leaf's, the biases of the convs feeding an
+    instance norm aside (their true gradient is 0)."""
+    import torch
+    from values_tpu_torch.models.ensemble_unet3d import \
+        ungroup_member_variables
+    from values_tpu_torch.training.experiment import Experiment, tree_leaves
+    names = [(m, k) for m in sorted(state.params)
+             for k in sorted(state.params[m])]
+    leaves = tree_leaves(state.params)
+    losses = trainer.loss(state.params, batch)
+    grads = torch.autograd.grad(losses.sum(), leaves)
+    losses = losses.detach()
+    split = ungroup_member_variables(
+        _grouped_tree(names, [g.cpu().numpy() for g in grads]),
+        trainer.members)
+    initial = trainer.member_variables(state)
+    worst = {"loss": 0.0, "total": 0.0, "leaf": 0.0}
+    for m in range(trainer.members):
+        exp = Experiment(cfg, "cuda")
+        est = exp.state_from_variables(initial[m])
+        loss = exp.loss(est.params, {"data": batch["data"][m],
+                                     "seg": batch["seg"][m]})
+        want = torch.autograd.grad(loss, tree_leaves(est.params))
+        want_names = [f"{mod}/{k}" for mod in sorted(est.params)
+                      for k in sorted(est.params[mod].get(
+                          "conv", est.params[mod]))]
+        got = [torch.from_numpy(v) for v in
+               (split[m]["params"][mod].get("conv", split[m]["params"][mod])
+                [k] for mod, k in (n.split("/") for n in want_names))]
+        pairs = [(n, a, w.cpu()) for n, a, w in zip(want_names, got, want)
+                 if not (n.startswith("contr_") and n.endswith("bias"))]
+        rel = max(float((a - w).norm() / w.norm()) for _, a, w in pairs)
+        total = float(torch.sqrt(sum(((a - w) ** 2).sum()
+                                     for _, a, w in pairs))
+                      / torch.sqrt(sum((w ** 2).sum() for _, _, w in pairs)))
+        loss_rel = abs(float(losses[m]) - loss.item()) / abs(loss.item())
+        worst = {"loss": max(worst["loss"], loss_rel),
+                 "total": max(worst["total"], total),
+                 "leaf": max(worst["leaf"], rel)}
+    log(f"first f32 joint step (G={trainer.members}) against "
+        f"{trainer.members} Experiment steps (G=1): loss rel "
+        f"{worst['loss']:.2e}, gradient error {worst['total']:.2e} of the "
+        f"norm, largest leaf {worst['leaf']:.2e}; card {card}")
+    if worst["loss"] > 2e-4 or worst["total"] > 1e-3 or worst["leaf"] > 1e-2:
+        raise AssertionError("the joint step disagrees with the "
+                             "independent Experiment steps")
+
+
+def joint_training_path(root: str, card: str):
+    """EnsembleTrainer with N_MEMBERS members on softmax_config at its
+    published widths (UNet3D f 8, 64^3 patches, batch 8 per member) over
+    the toy Case_1, JOINT_STEPS steps at f32 and at bf16, launches and
+    K1 regimes counted; the first f32 step against independent
+    Experiments; the f32 members written as checkpoints. Returns the
+    checkpoint paths, the launches and the timings."""
+    import torch
+    from values_tpu_torch.config import compose
+    from values_tpu_torch.ops.kernels.conv3d import conv3d_fused
+    from values_tpu_torch.training.ensemble import EnsembleTrainer
+    from values_tpu_torch.training.main import DEFAULT_CONFIG_DIR
+    out, ckpts = {}, None
+    for name, extra in (("f32", []), ("bf16", ["+precision=bf16"])):
+        cfg = compose(DEFAULT_CONFIG_DIR, "softmax_config",
+                      training_overrides(root, "joint") + extra)
+        trainer = EnsembleTrainer(cfg, N_MEMBERS, "cuda")
+        state = trainer.init_state(cfg.seed, PATCH)
+        batches = joint_batches(cfg, root, N_MEMBERS)
+        if name == "f32":
+            joint_step_against_experiments(trainer, state, batches[0], cfg,
+                                           card)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        regimes = dict(conv3d_fused.regime_launches)
+        reset_launches()
+        times = []
+        for batch in batches:
+            t0 = time.perf_counter()
+            _, losses = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches()
+        ran = regimes_since(regimes)
+        expect_launches(launches, {
+            "conv3d_fused": (K1_FORWARD + K1_DX) * JOINT_STEPS,
+            "conv3d_fused_train": K1_DX * JOINT_STEPS, "fused_entropy": 0,
+            "sampled_softmax_stats": 0},
+            f"joint training {name} ({JOINT_STEPS} steps of 18 K1 forward "
+            f"and 17 K1b dx launches at G={N_MEMBERS})")
+        expect_f32_regime(ran, name == "f32", f"joint training {name}")
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"joint training {name}: losses {losses}")
+        step_ms = statistics.mean(times[1:])
+        vps = N_MEMBERS * TRAIN_BATCH / step_ms * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        with torch.no_grad():
+            k1_fwd = device_times(lambda: trainer.loss(state.params,
+                                                       batches[0]))[3]
+        table, wall, busy, k1, dw = device_times(
+            lambda: trainer.train_step(state, batches[0]))
+        with open(os.path.join(OUT_DIR, f"profile_joint_step_{name}.txt"),
+                  "w") as fh:
+            fh.write(table.table(sort_by="self_device_time_total",
+                                 row_limit=40))
+        out[name] = {"step_ms": times, "volumes_per_s": vps, "peak_gb": peak,
+                     "launches": launches, "regimes": ran,
+                     "profile": {"wall_ms": wall, "busy_ms": busy,
+                                 "k1_forward_ms": k1_fwd,
+                                 "k1_dx_ms": k1 - k1_fwd, "dw_ms": dw}}
+        log(f"joint training {name}, {N_MEMBERS} members x batch "
+            f"{TRAIN_BATCH} x {PATCH}^3: steps " + " / ".join(
+                f"{t:.1f}" for t in times) + f" ms (mean of steps 2-"
+            f"{JOINT_STEPS}: {step_ms:.2f} ms), {vps:.2f} volumes trained/s,"
+            f" peak {peak:.2f} GB; losses " + " ".join(
+                f"{v:.4f}" for v in losses.tolist())
+            + f"; launches {json.dumps(launches)}, K1 regimes "
+            f"{json.dumps(ran)}; profile of one step (profiler on): device "
+            f"{busy:.2f} of {wall:.2f} ms wall, idle share "
+            + ("not measured" if not busy else f"{1 - busy / wall:.3f}")
+            + f", K1 forward {k1_fwd:.2f} ms, K1 dx {k1 - k1_fwd:.2f} ms, dW "
+            f"(cuDNN) {dw:.2f} ms, the rest {busy - k1 - dw:.2f} ms; card "
+            f"{card}")
+        if name == "f32":
+            ckpts = trainer.save_member_checkpoints(
+                state, os.path.join(root, "joint_members"),
+                epoch=0)
+    return ckpts, out
+
+
+# -- the sliding-window test_3d CLI ---------------------------------------------
+
+BIG, BIG_VOLUMES, TEST3D_CHUNK = 128, 4, 3
+# every map the CLI writes for one volume of a 5-member ensemble with 3
+# raters: input, 3 rater masks, 6 label maps (mean + 5), 12 probability
+# maps (mean + 5, 2 classes each) and the 3 C2 maps
+MAPS_PER_VOLUME = 1 + RATERS + (1 + N_MEMBERS) + (1 + N_MEMBERS) * CLASSES + 3
+METRICS = ["loss", "dice", "ged"] + [f"max dice rater {r}"
+                                     for r in range(RATERS)] + [
+    "max dice pred"]
+
+
+def write_big_volumes(root: str) -> list:
+    """BIG_VOLUMES noisy-ball volumes of BIG^3 (8 windows of 64^3 each)
+    with RATERS rater masks, in the toy test layout (imagesTs/labelsTs,
+    ``<id>_<rater>.npy``). Returns the subject file names."""
+    grid = np.indices((BIG,) * 3).astype(np.float32)
+    images, labels = (os.path.join(root, d) for d in ("imagesTs",
+                                                      "labelsTs"))
+    os.makedirs(images)
+    os.makedirs(labels)
+    subjects = []
+    for i in range(BIG_VOLUMES):
+        rs = np.random.RandomState(1000 + i)
+        center = rs.uniform(40, 88, 3)[:, None, None, None]
+        dist = np.sqrt(((grid - center) ** 2).sum(0))
+        radius = rs.uniform(16, 32)
+        name = f"big_{i:02d}.npy"
+        np.save(os.path.join(images, name),
+                ((dist < radius) + 0.3 * rs.randn(*dist.shape)
+                 ).astype(np.float32))
+        for r in range(RATERS):
+            np.save(os.path.join(labels, f"big_{i:02d}_{r:02d}.npy"),
+                    (dist < radius + r - 1).astype(np.uint8))
+        subjects.append(name)
+    return subjects
+
+
+def check_result_tree(result_dir: str, subjects) -> None:
+    """The CLI's output tree, file by file: every map of every volume
+    present and finite, and metrics.json with each volume's metrics and
+    their mean."""
+    from values_tpu_torch.core import nifti
+    stems = [s.split(".")[0] for s in subjects]
+    want = {"metrics.json"}
+    for stem in stems:
+        want |= {f"input/{stem}.nii.gz"}
+        want |= {f"gt_seg/{stem}_{r:02d}.nii.gz" for r in range(RATERS)}
+        for pred in ["mean"] + [f"{p + 1:02d}" for p in range(N_MEMBERS)]:
+            want.add(f"pred_seg/{stem}_{pred}.nii.gz")
+            want |= {f"pred_prob/{stem}_{pred}_{c + 1:02d}.nii.gz"
+                     for c in range(CLASSES)}
+        want |= {f"{unc}/{stem}.nii.gz" for unc in (
+            "pred_entropy", "aleatoric_uncertainty", "epistemic_uncertainty")}
+    got = {os.path.relpath(os.path.join(d, f), result_dir)
+           for d, _, files in os.walk(result_dir) for f in files}
+    if got != want:
+        raise AssertionError(f"test_3d tree: missing {sorted(want - got)[:5]},"
+                             f" extra {sorted(got - want)[:5]}")
+    for rel in sorted(want - {"metrics.json"}):
+        arr, _ = nifti.load(os.path.join(result_dir, rel))
+        if not np.isfinite(arr).all():
+            raise AssertionError(f"test_3d map {rel} is not finite")
+    with open(os.path.join(result_dir, "metrics.json")) as f:
+        metrics = json.load(f)
+    if "mean" not in metrics or len(metrics) != len(stems) + 1 or any(
+            sorted(v) != sorted(METRICS) for v in metrics.values()):
+        raise AssertionError(f"test_3d metrics.json: {metrics}")
+
+
+def member_modules(states, aleatoric=False):
+    """The plain path's per-member UNet3D modules on the card, from
+    reference state_dicts (``model.`` prefix optional)."""
+    from values_tpu_torch.models.torch_import import strip_model_prefix
+    from values_tpu_torch.models.unet3d import UNet3D
+    nets = []
+    for state in states:
+        net = UNet3D(CLASSES, initial_filter_size=FILTERS,
+                     aleatoric_loss=aleatoric)
+        net.load_state_dict(strip_model_prefix(state), strict=True)
+        nets.append(net.cuda().eval())
+    return nets
+
+
+def plain_volume_sums(nets, volume, chunk: int, generator=None):
+    """One volume through the plain path on the card: the engine's
+    windowing (chunks of ``chunk`` windows, extract_windows, ordered
+    stitch_windows) around per-member UNet3D modules (unfused, cuDNN with
+    TF32 off) and a float32 softmax; with a generator, the aleatoric
+    members' (mu, s), normals drawn as the engine draws them and the
+    port's sample transform. Returns (softmax sums (S, C, *vol), sigma
+    sums or None) as numpy."""
+    import torch
+    from values_tpu_torch.ops.uncertainty import aleatoric_softmax_samples
+    from values_tpu_torch.ops.window import (enumerate_window_starts,
+                                             extract_windows, stitch_windows)
+    vol = torch.from_numpy(volume).cuda().float()
+    starts = enumerate_window_starts(volume.shape, PATCH, 1.0)
+    vol_shape = tuple(volume.shape)
+    sums = None
+    with torch.no_grad():
+        for i in range(0, len(starts), chunk):
+            part = starts[i:i + chunk]
+            x = extract_windows(vol, part, PATCH)[..., None]
+            if generator is None:
+                stacks = [torch.softmax(torch.stack([n(x) for n in nets]),
+                                        dim=-1)]
+            else:
+                mu, s = (torch.stack(t) for t in zip(*(n(x) for n in nets)))
+                eps = torch.randn((len(nets), N_ALEATORIC)
+                                  + tuple(mu.shape[1:]), generator=generator,
+                                  device=mu.device)
+                stacks = list(aleatoric_softmax_samples(mu, s, eps))
+            out = [stitch_windows(t.permute(1, 2, 3, 4, 0, 5), part,
+                                  vol_shape + (t.shape[0], t.shape[-1]))
+                   for t in stacks]
+            sums = out if sums is None else [a + b for a, b in zip(sums, out)]
+    sums = [t.permute(3, 4, 0, 1, 2).cpu().numpy() for t in sums]
+    return sums[0], (sums[1] if generator is not None else None)
+
+
+def close(got, want, what: str) -> float:
+    """atol + rtol 1e-3: the fused forward (deferred norms, K1's summation
+    order) and the unfused modules round float32 differently."""
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    if (err > 1e-3 + 1e-3 * np.abs(want)).any():
+        raise AssertionError(f"{what}: max_abs_err {err.max():.3e} beyond "
+                             "atol + rtol 1e-3")
+    return float(err.max())
+
+
+def test3d_path(ckpts, train_root: str, card: str):
+    """``python -m values_tpu_torch.inference.test_3d`` on the jointly
+    trained checkpoints, at f32 and bf16: (a) the Case_1 validation split
+    (64^3 volumes, one window each), (b) BIG_VOLUMES volumes of 128^3 by
+    --test_data_dir/--subject_ids at --test_batch_size 3 (chunks of 3, 3
+    and 2). Each run's tree checked and its launches counted (18 K1 per
+    chunk); run (b) at f32 held against the plain path. Returns the root,
+    the big volumes' directory and subjects, the CLI seconds and K1's
+    launches in each run."""
+    import pickle as pkl
+    import torch
+    from values_tpu_torch.inference import test_3d
+    from values_tpu_torch.inference.carrier import VolumeCarrier
+    from values_tpu_torch.ops.kernels.conv3d import conv3d_fused
+    from values_tpu_torch.training.checkpoint import load_any_checkpoint
+    root = tempfile.mkdtemp(dir=OUT_DIR, prefix="test3d_")
+    big_dir = os.path.join(root, "big")
+    subjects = write_big_volumes(big_dir)
+    with open(os.path.join(train_root, "Case_1", "splits.pkl"), "rb") as f:
+        val = sorted(pkl.load(f)[0]["val"])
+    sets = {"val": (["--test_split", "val"], val, len(val), "val"),
+            "128": (["--test_data_dir", big_dir, "--subject_ids", *subjects,
+                     "--test_batch_size", str(TEST3D_CHUNK)], subjects,
+                    BIG_VOLUMES * -(-8 // TEST3D_CHUNK), "id")}
+    seconds, runs, held = {}, {}, None
+    for dtype in ("float32", "bfloat16"):
+        for name, (extra, subj, chunks, split) in sets.items():
+            save = os.path.join(root, f"{name}_{dtype}")
+            regimes = dict(conv3d_fused.regime_launches)
+            reset_launches()
+            t0 = time.perf_counter()
+            carrier = test_3d.run_test(test_3d.test_cli(
+                ["--checkpoint_paths", *ckpts, "--save_dir", save,
+                 "--dtype", dtype] + extra))
+            seconds[name, dtype] = time.perf_counter() - t0
+            launches = read_launches()
+            ran = regimes_since(regimes)
+            expect_launches(launches, {
+                "conv3d_fused": 18 * chunks, "conv3d_fused_train": 0,
+                "fused_entropy": 0, "sampled_softmax_stats": 0},
+                f"test_3d {name} {dtype} ({chunks} chunks of 18 K1 launches)")
+            expect_f32_regime(ran, dtype == "float32",
+                              f"test_3d {name} {dtype}")
+            result_dir = os.path.join(save, "Softmax-Case-1", "test_results",
+                                      "joint", split)
+            check_result_tree(result_dir, subj)
+            runs[f"test_3d {name} {dtype}"] = launches["conv3d_fused"]
+            if (name, dtype) == ("128", "float32"):
+                held = carrier
+            with open(os.path.join(result_dir, "metrics.json")) as f:
+                mean = json.load(f)["mean"]
+            log(f"test_3d CLI {name} ({len(subj)} volumes, {chunks} chunks) "
+                f"{dtype}: {seconds[name, dtype]:.2f} s (checkpoint reading, "
+                f"volume loading and {len(subj) * MAPS_PER_VOLUME} nii.gz "
+                f"maps included); mean dice {mean['dice']:.4f}, ged "
+                f"{mean['ged']:.4f}; launches {json.dumps(launches)}, K1 "
+                f"regimes {json.dumps(ran)}; card {card}")
+            if dtype == "bfloat16":
+                shutil.rmtree(save)
+
+    # run (b) at f32 against the plain path, volume by volume
+    nets = member_modules([load_any_checkpoint(p)[1] for p in ckpts])
+    worst = {}
+    for path, value in held.data.items():
+        sums, _ = plain_volume_sums(nets, np.load(path), TEST3D_CHUNK)
+        plain = VolumeCarrier(held.device)
+        plain.add_volume(path, None, value["data"], None, sums,
+                         value["num_predictions"][0])
+        plain.compute_uncertainty()
+        for key in ("softmax_pred", "pred_entropy", "aleatoric_uncertainty",
+                    "epistemic_uncertainty"):
+            worst[key] = max(worst.get(key, 0.0), close(
+                value[key], plain.data[path][key], f"test_3d f32 {key}"))
+    log("test_3d 128^3 f32 against the plain path (per-member UNet3D "
+        "modules through the same windowing and carrier): max_abs_err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f"; card {card}")
+    del held, nets
+    torch.cuda.empty_cache()
+    return root, big_dir, subjects, seconds, runs
+
+
+def aleatoric_engine_path(big_dir: str, subjects, card: str):
+    """The aleatoric members of the aleatoric path (seed SEED + 10) through
+    SlidingWindowEngine (grouped, K1, f32, chunks of 3) over the 128^3
+    volumes, its launches counted from 0 over that run; then held against
+    the plain path given the same normals (a generator seeded as the
+    engine's, drawing the same shapes in the same order): softmax and
+    sigma sums within atol + rtol 1e-3."""
+    import torch
+    from values_tpu_torch.inference.engine import SlidingWindowEngine
+    from values_tpu_torch.models.torch_import import unet3d_params_from_torch
+    from values_tpu_torch.models.unet3d import UNet3D
+    states = member_state_dicts(SEED + 10, aleatoric=True)
+    engine = SlidingWindowEngine(
+        UNet3D(CLASSES, initial_filter_size=FILTERS, aleatoric_loss=True),
+        [unet3d_params_from_torch(s) for s in states], mode="aleatoric",
+        n_aleatoric_samples=N_ALEATORIC, patch_size=PATCH,
+        window_batch=TEST3D_CHUNK, seed=CLI_SEED, device="cuda")
+    volumes = [np.load(os.path.join(big_dir, "imagesTs", subject))
+               for subject in subjects]
+    reset_launches()
+    got = []
+    for volume in volumes:
+        softmax, _, _, _, sigma = engine.run_volume(volume)
+        got.append((softmax, sigma))
+    launches = read_launches()
+    chunks = len(subjects) * -(-8 // TEST3D_CHUNK)
+    expect_launches(launches, {"conv3d_fused": 18 * chunks,
+                               "conv3d_fused_train": 0, "fused_entropy": 0,
+                               "sampled_softmax_stats": 0},
+                    "aleatoric engine")
+    nets = member_modules(states, aleatoric=True)
+    gen = torch.Generator(device="cuda").manual_seed(CLI_SEED)
+    worst = {"softmax": 0.0, "sigma": 0.0}
+    for volume, (softmax, sigma) in zip(volumes, got):
+        want, want_sigma = plain_volume_sums(nets, volume, TEST3D_CHUNK,
+                                             generator=gen)
+        worst["softmax"] = max(worst["softmax"], close(
+            softmax, want, "aleatoric engine softmax sums"))
+        worst["sigma"] = max(worst["sigma"], close(
+            sigma, want_sigma, "aleatoric engine sigma sums"))
+    log(f"aleatoric engine ({N_MEMBERS} members x {N_ALEATORIC} samples, "
+        f"{len(subjects)} volumes of {BIG}^3, chunks of {TEST3D_CHUNK}, "
+        f"f32) against the plain path given the same normals: max_abs_err "
+        f"softmax sums {worst['softmax']:.3e}, sigma sums "
+        f"{worst['sigma']:.3e}; launches {json.dumps(launches)}; card {card}")
+    return launches
+
+
+# passes over the 128^3 set for the engine's rate: one pass is 32 windows
+ENGINE_PASSES = 7
+
+
+def engine_throughput(ckpts, big_dir: str, subjects, card: str):
+    """Windows and volumes per second of SlidingWindowEngine (the jointly
+    trained members, grouped, the CLI's default chunk of 12) over the
+    128^3 volumes from disk, f32 and bf16: ENGINE_PASSES timed passes
+    over the set after one warm-up volume, median and spread; and a
+    torch.profiler breakdown of one 12-window chunk (a 192x128x128
+    volume) at each dtype, its device time split into kernels and
+    memory copies, the idle share taken from the kernels alone. Returns
+    the numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from values_tpu_torch.data.samples import get_val_test_data_samples
+    from values_tpu_torch.inference.engine import SlidingWindowEngine
+    from values_tpu_torch.models.torch_import import unet3d_params_from_torch
+    from values_tpu_torch.models.unet3d import UNet3D
+    from values_tpu_torch.training.checkpoint import load_any_checkpoint
+    members = [unet3d_params_from_torch(load_any_checkpoint(p)[1])
+               for p in ckpts]
+    samples = get_val_test_data_samples(
+        base_dir=big_dir, subject_ids=subjects, test=True,
+        num_raters=RATERS, patch_size=PATCH)
+    chunk_volume = np.random.RandomState(9).rand(192, 128, 128).astype(
+        np.float32)
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        engine = SlidingWindowEngine(
+            UNet3D(CLASSES, initial_filter_size=FILTERS), members,
+            patch_size=PATCH, window_batch=12, dtype=dtype, device="cuda")
+        engine.run_volume(np.load(samples[0]["image_path"]))
+        passes = []
+        for _ in range(ENGINE_PASSES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carrier = engine.run_samples(samples)
+            torch.cuda.synchronize()
+            passes.append(time.perf_counter() - t0)
+            if len(carrier.data) != len(subjects):
+                raise AssertionError("the engine lost a volume")
+            del carrier
+        elapsed = float(np.median(passes))
+        engine.run_volume(chunk_volume)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.run_volume(chunk_volume)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        table = prof.key_averages()
+        device = [e for e in table if "CUDA" in str(e.device_type)
+                  and e.self_device_time_total > 0]
+        copies = [e for e in device if e.key.startswith(("Memcpy",
+                                                         "Memset"))]
+        copy_ms = sum(e.self_device_time_total for e in copies) / 1e3
+        kernel_ms = sum(e.self_device_time_total for e in device
+                        if e not in copies) / 1e3
+        k1 = sum(e.self_device_time_total for e in device
+                 if any(n in e.key for n in K1_KERNELS)) / 1e3
+        with open(os.path.join(OUT_DIR, f"profile_test3d_chunk_{name}.txt"),
+                  "w") as fh:
+            fh.write(table.table(sort_by="self_device_time_total",
+                                 row_limit=40, max_name_column_width=120))
+        out[name] = {"windows_per_s": len(samples) / elapsed,
+                     "volumes_per_s": len(subjects) / elapsed,
+                     "pass_s": passes, "chunk_wall_ms": wall,
+                     "chunk_kernel_ms": kernel_ms, "chunk_copy_ms": copy_ms,
+                     "chunk_k1_ms": k1}
+        idle = ("not measured" if not kernel_ms
+                else f"{1 - kernel_ms / wall:.3f}")
+        log(f"test_3d engine {name}: {ENGINE_PASSES} passes of "
+            f"{len(samples)} windows over {len(subjects)} {BIG}^3 volumes: "
+            f"median {elapsed:.4f} s (min {min(passes):.4f}, max "
+            f"{max(passes):.4f}; all {', '.join(f'{t:.4f}' for t in passes)}"
+            f"): {out[name]['windows_per_s']:.2f} windows/s, "
+            f"{out[name]['volumes_per_s']:.2f} volumes/s (loading from "
+            f"disk and the copy back included); one 12-window chunk under "
+            f"the profiler: {wall:.2f} ms wall, kernels {kernel_ms:.2f} ms "
+            f"(K1 {k1:.2f} ms), memory copies {copy_ms:.2f} ms, idle share "
+            f"of the kernels {idle}; card {card}")
+    return out
+
+
+def time_k1_f32_chunk():
+    """K1's ``f32`` regime at the test_3d default chunk's largest conv,
+    expand_1_1 (B 12, 64^3, G 5, 8 + 8 -> 8 channels per group, prologue,
+    leaky), beside its bound, its plain version and F.conv3d(groups=5)
+    in float32 with TF32 off (with the same prologue, concat and
+    activation as separate passes)."""
+    import torch
+    import torch.nn.functional as F
+    from values_tpu_torch.ops.kernels.conv3d import (concat_groups,
+                                                     conv3d_fused,
+                                                     conv3d_fused_reference)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    b, g, c = 12, N_MEMBERS, FILTERS
+    x, weight, bias, x2, maps = k1_inputs(gen, torch.float32, b, PATCH,
+                                          PATCH, PATCH, g, c, c, c, True)
+    kw = dict(x2=x2, prologue=maps, activation="leaky")
+    out = conv3d_fused(x, weight, bias, g, **kw)
+    ref = conv3d_fused_reference(x, weight, bias, g, **kw)
+    err = float((out - ref).abs().max())
+    if err > 1e-4:
+        raise AssertionError(f"K1 f32 at the test_3d chunk: max_abs_err "
+                             f"{err:.3e}")
+    del out, ref
+    ms = cuda_ms(lambda: conv3d_fused(x, weight, bias, g, **kw))
+    plain_ms = cuda_ms(lambda: conv3d_fused_reference(x, weight, bias, g,
+                                                      **kw), reps=3)
+    w_lib = weight.permute(4, 3, 0, 1, 2).contiguous()
+    sc, sh, sl = (m[:, None, None, None, :] for m in maps)
+
+    def library():
+        v = concat_groups(x, x2, g) * sc - sh
+        v = torch.maximum(v, v * sl)
+        y = F.conv3d(v.permute(0, 4, 1, 2, 3), w_lib, bias, padding=1,
+                     groups=g)
+        return F.leaky_relu(y, 0.01)
+
+    library_ms = cuda_ms(library, reps=5)
+    vox = b * PATCH ** 3
+    bytes_moved = 4 * vox * g * 3 * c + 4 * weight.numel() + 3 * 4 * \
+        maps[0].numel() + 4 * bias.numel()
+    flops = 2 * vox * g * 27 * (2 * c) * c
+    bound_ms, bound_by = bound(bytes_moved, flops, "float32")
+    return {"shape": f"expand_1_1 B={b} {PATCH}^3 G={g} Cin={2 * c} "
+                     f"Cout={c} f32", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "max_abs_err": err,
+            "tflops": flops / ms / 1e9}
+
+
 # -- timings ------------------------------------------------------------------
 
 def time_k1(launches, b):
@@ -1468,6 +2062,28 @@ def time_k1b(launches):
                      "weight"}
 
 
+def device_times(fn):
+    """One call of ``fn`` under torch.profiler: (the table, wall ms, device
+    kernel ms, K1's kernel ms, the dW library call's device ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    table = prof.key_averages()
+    kernels = [e for e in table if "CUDA" in str(e.device_type)
+               and e.self_device_time_total > 0]
+    k1 = sum(e.self_device_time_total for e in kernels
+             if any(n in e.key for n in K1_KERNELS)) / 1e3
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    dw = sum(e.device_time_total for e in table
+             if e.key == "aten::convolution_backward") / 1e3
+    return table, wall, busy, k1, dw
+
+
 def time_training(exp32, state32, batch, root: str, card: str):
     """Milliseconds per training step and volumes trained per second at
     batch 8, f32 (with TF32 off and on) and bf16: host clock around
@@ -1478,7 +2094,6 @@ def time_training(exp32, state32, batch, root: str, card: str):
     (aten::convolution_backward), the rest (norms, losses, optimizer,
     casts) and idle."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from values_tpu_torch.config import compose
     from values_tpu_torch.training.experiment import Experiment
     from values_tpu_torch.training.main import DEFAULT_CONFIG_DIR
@@ -1505,23 +2120,6 @@ def time_training(exp32, state32, batch, root: str, card: str):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if not bool(torch.isfinite(loss)):
             raise AssertionError(f"{name} training loss {loss}")
-
-        def device_times(fn):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            table = prof.key_averages()
-            kernels = [e for e in table if "CUDA" in str(e.device_type)
-                       and e.self_device_time_total > 0]
-            k1 = sum(e.self_device_time_total for e in kernels
-                     if any(n in e.key for n in K1_KERNELS)) / 1e3
-            busy = sum(e.self_device_time_total for e in kernels) / 1e3
-            dw = sum(e.device_time_total for e in table
-                     if e.key == "aten::convolution_backward") / 1e3
-            return table, wall, busy, k1, dw
 
         def forward():
             with torch.no_grad():
@@ -1789,12 +2387,33 @@ def main() -> int:
         train_root, train_runs, _ = training_path(smi)
         exp32, state32, train_batch = first_step_against_plain(train_root,
                                                                smi)
+    with phase("joint ensemble training", smi):
+        joint_ckpts, joint = joint_training_path(train_root, smi)
+    with phase("test_3d CLI", smi):
+        (t3_root, big_dir, big_subjects, t3_seconds,
+         t3_launches) = test3d_path(joint_ckpts, train_root, smi)
+    with phase("aleatoric engine", smi):
+        ale_engine = aleatoric_engine_path(big_dir, big_subjects, smi)
+    with phase("test_3d engine timings and profiles", smi):
+        engine_rates = engine_throughput(joint_ckpts, big_dir, big_subjects,
+                                         smi)
+        shutil.rmtree(t3_root)
     with phase("kernel timings", smi):
         kernels = [time_k1(launches, vols.shape[0]),
                    time_k1b(train_runs["f32"][2]),
                    time_k2(launches, grouped, vols),
                    time_k3(a_launches, a_grouped, a_vols)]
         kernels[-1]["sass"] = k3_sass
+        # the launches of the other paths, each counted from 0 in its run
+        kernels[0]["test_3d_f32"] = time_k1_f32_chunk()
+        kernels[0]["path_launches"] = dict(
+            {f"joint training {n} ({JOINT_STEPS} steps, G={N_MEMBERS})":
+             joint[n]["launches"]["conv3d_fused"] for n in joint},
+            **t3_launches,
+            **{"aleatoric engine f32": ale_engine["conv3d_fused"]})
+        kernels[1]["path_launches"] = {
+            f"joint training {n} ({JOINT_STEPS} steps, G={N_MEMBERS})":
+            joint[n]["launches"]["conv3d_fused_train"] for n in joint}
         for k in kernels:
             extra = ""
             if "loop_ms" in k:
@@ -1815,6 +2434,16 @@ def main() -> int:
             if "dw_library_ms" in k:
                 extra = (f"; dW at the same conv (cuDNN weight gradient) "
                          f"{k['dw_library_ms']:.3f} ms")
+            if "test_3d_f32" in k:
+                t = k["test_3d_f32"]
+                extra = (f"; f32 regime at the test_3d chunk [{t['shape']}]: "
+                         f"{t['ms']:.3f} ms ({t['tflops']:.1f} TFLOP/s), "
+                         f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}), "
+                         f"plain {t['plain_ms']:.3f} ms, F.conv3d(groups="
+                         f"{N_MEMBERS}) f32 with TF32 off "
+                         f"{t['library_ms']:.3f} ms")
+            if "path_launches" in k:
+                extra += f"; other paths' launches {json.dumps(k['path_launches'])}"
             library = ("none" if k["library_ms"] is None
                        else f"{k['library_ms']:.3f} ms")
             log(f"{k['name']} [{k['shape']}]: {k['ms']:.3f} ms, bound "
@@ -1845,7 +2474,14 @@ def main() -> int:
         f" {PATCH}^3, bf16, batch {BATCH}); training "
         f"{training['f32']['volumes_per_s']:.2f} volumes/s f32, "
         f"{training['bf16']['volumes_per_s']:.2f} bf16 (UNet3D, "
-        f"{PATCH}^3, batch {TRAIN_BATCH}); card {smi}")
+        f"{PATCH}^3, batch {TRAIN_BATCH}); joint training of {N_MEMBERS} "
+        f"members {joint['f32']['volumes_per_s']:.2f} volumes/s f32, "
+        f"{joint['bf16']['volumes_per_s']:.2f} bf16; test_3d engine "
+        f"{engine_rates['f32']['volumes_per_s']:.2f} / "
+        f"{engine_rates['bf16']['volumes_per_s']:.2f} {BIG}^3 volumes/s "
+        f"f32 / bf16; test_3d CLI seconds " + ", ".join(
+            f"{n} {d} {s:.2f}" for (n, d), s in t3_seconds.items())
+        + f"; card {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     # the run drives one card, whatever else the machine shows
     print(json.dumps({"ok": True, "device": {

@@ -65,6 +65,7 @@ def test_no_jax_or_values_tpu_import(path):
 def test_entry_point_needs_cuda_unless_cpu_is_asked_for(tmp_path):
     from values_tpu_torch.core.device import resolve_device
     from values_tpu_torch.inference.score import run_score, score_cli
+    from values_tpu_torch.inference import test_3d
     from values_tpu_torch.inference.scoring import (make_aleatoric_scorer,
                                                     make_scorer)
     from values_tpu_torch.training.main import main as train_main
@@ -74,6 +75,9 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked_for(tmp_path):
     args = score_cli(["--checkpoint_paths", str(tmp_path / "none.ckpt"),
                       "--out", str(tmp_path / "s.json")])
     assert args.device == "cuda"
+    test_args = test_3d.test_cli(["--checkpoint_paths",
+                                  str(tmp_path / "none.ckpt")])
+    assert test_args.device == "cuda"
     if torch.cuda.is_available():
         make_scorer(2, 16)
         make_aleatoric_scorer(2, 16)
@@ -85,6 +89,16 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked_for(tmp_path):
         # the CLI refuses before it reads a checkpoint
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run_score(args)
+        # the joint ensemble trainer refuses before it builds anything
+        from values_tpu_torch.config import make_config
+        from values_tpu_torch.training.ensemble import EnsembleTrainer
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            EnsembleTrainer(make_config({"model": {
+                "_target_": "values_tpu.models.unet3d.UNet3D",
+                "num_classes": 2}}), 2)
+        # the sliding-window CLI refuses before it reads a checkpoint
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            test_3d.run_test(test_args)
         # the training CLI refuses before it touches the data
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_main([f"data_input_dir={tmp_path / 'none'}",

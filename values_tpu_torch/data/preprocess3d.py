@@ -25,7 +25,7 @@ from typing import Sequence
 import numpy as np
 
 from ..core import nifti
-from ..core.io import subfiles
+from ..core.io import save_pickle, subfiles
 
 
 def pad_to_shape(image: np.ndarray, new_shape: Sequence[int],
@@ -105,7 +105,6 @@ def kfold_indices(n_samples: int, n_splits: int, seed: int):
 def create_kfold_splits(output_dir: str, image_dir: str, test_dir: str,
                         seed: int, n_splits: int = 5) -> None:
     """splits.pkl: list of {train, val, test} (toy_datamodule_3D.py:198-228)."""
-    import pickle
     np.random.seed(seed)
     train_files = subfiles(image_dir, suffix=".npy", join=False, sort=True)
     test_files = subfiles(test_dir, suffix=".npy", join=False, sort=True)
@@ -117,5 +116,4 @@ def create_kfold_splits(output_dir: str, image_dir: str, test_dir: str,
             "val": np.array(train_files)[val_idx],
             "test": np.array(test_files),
         })
-    with open(os.path.join(output_dir, "splits.pkl"), "wb") as f:
-        pickle.dump(splits, f)
+    save_pickle(splits, os.path.join(output_dir, "splits.pkl"))

@@ -27,7 +27,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import json
 import os
 from typing import Callable, Dict, List, Tuple
 
@@ -35,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.io import load_json, save_json
 from ..core.seed import make_generator, set_seed
 from ..data.samples import get_val_test_data_samples
 from ..models.ensemble_unet3d import cast_weights
@@ -104,8 +104,7 @@ def build_scorer(hparams: Dict, members: int, args, device
     if args.threshold_path:
         # per-class thresholds, reference scheme: "Mean <class> threshold"
         # with PE->predictive, EE->aleatoric, MI->epistemic
-        with open(args.threshold_path) as f:
-            tj = json.load(f)[args.pred_model]
+        tj = load_json(args.threshold_path)[args.pred_model]
         threshold = tuple(tj[f"Mean {c} threshold"]
                           for c in ("predictive", "aleatoric", "epistemic"))
     common = dict(agg_patch=args.agg_patch, threshold=threshold,
@@ -200,9 +199,7 @@ def run_score(args) -> Dict[str, Dict[str, float]]:
             subject = os.path.basename(p).rsplit(".", 1)[0]
             results[subject] = {r: float(out[k, j])
                                 for k, r in enumerate(rows)}
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(results, f, indent=2)
+    save_json(results, args.out)
     print(f"wrote {len(results)} volumes x {len(rows)} scores -> {args.out}")
     return results
 

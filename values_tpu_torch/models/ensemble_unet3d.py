@@ -35,15 +35,25 @@ and ``packed_train_forward`` (:942-989): every 3x3x3 conv goes through
 K1b (:func:`~values_tpu_torch.ops.kernels.conv3d.conv3d_fused_train`),
 and the norms, pools, concats and transposed convs stay ordinary
 differentiable torch ops.
+
+:func:`group_member_variables` and :func:`ungroup_member_variables` move
+between M flax-layout member trees and the grouped tree
+(``values_tpu/models/ensemble_unet3d.py:187-256``); the joint ensemble
+trainer keeps its parameters grouped. The sliding-window predictors
+:func:`make_grouped_ensemble_predictor` and
+:func:`make_grouped_aleatoric_predictor` run one fused forward over a
+chunk of windows (``ensemble_unet3d_pallas.py:706-745``, :823-862).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.kernels.conv3d import (concat_groups, conv3d_fused,
                                   conv3d_fused_train)
+from ..ops.uncertainty import aleatoric_softmax_samples
 from .torch_import import TRANSPOSED
 
 Maps = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -307,3 +317,94 @@ def cast_weights(weights: Mapping[str, Mapping[str, torch.Tensor]],
     return {name: {leaf: t.to(device=device, dtype=dtype).contiguous()
                    for leaf, t in leaves.items()}
             for name, leaves in weights.items()}
+
+
+# 1x1x1 heads and bottleneck convs, grouped on the output channels
+_HEADS = ("center_conv1", "center_conv2", "final", "final_aleatoric",
+          "mean_conv", "log_cov_diag_conv", "cov_factor_conv")
+
+
+def _numpy(a: Any) -> np.ndarray:
+    return (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+            else np.asarray(a))
+
+
+def group_member_variables(member_variables: List[Mapping],
+                           dtype=np.float32) -> Dict[str, Dict]:
+    """M flax-layout UNet3D trees (numpy or tensors, ``{"params": ...}``
+    or the bare tree) -> the grouped ``{"params": ...}`` tree of
+    C-contiguous numpy arrays: conv blocks and heads concatenated on the
+    output channels, the k2s2 transposed convs stacked on a leading
+    member axis."""
+    members = [v["params"] if "params" in v else v for v in member_variables]
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+    names = ([k for k in members[0] if k.startswith(("contr_", "expand_"))]
+             + [k for k in _HEADS if k in members[0]])
+    for name in names:
+        leaves = [m[name].get("conv", m[name]) for m in members]
+        params[name] = {leaf: np.ascontiguousarray(np.concatenate(
+            [_numpy(v[leaf]) for v in leaves], axis=-1), dtype=dtype)
+            for leaf in ("kernel", "bias")}
+    for name in TRANSPOSED:
+        params[name] = {leaf: np.ascontiguousarray(np.stack(
+            [_numpy(m[name][leaf]) for m in members]), dtype=dtype)
+            for leaf in ("kernel", "bias")}
+    return {"params": params}
+
+
+def ungroup_member_variables(grouped: Mapping, members: int,
+                             dtype=np.float32) -> List[Dict]:
+    """The inverse of :func:`group_member_variables`: M flax-layout
+    ``{"params": ...}`` trees of numpy arrays, conv blocks under their
+    ``conv`` level."""
+    params = grouped["params"] if "params" in grouped else grouped
+    trees: List[Dict] = [{} for _ in range(members)]
+    for name, leaves in params.items():
+        kernel, bias = _numpy(leaves["kernel"]), _numpy(leaves["bias"])
+        if name in TRANSPOSED:
+            parts = [(kernel[m], bias[m]) for m in range(members)]
+        else:
+            parts = list(zip(np.split(kernel, members, axis=-1),
+                             np.split(bias, members, axis=-1)))
+        for m, (k, b) in enumerate(parts):
+            leaf = {"kernel": k.astype(dtype), "bias": b.astype(dtype)}
+            trees[m][name] = ({"conv": leaf}
+                              if name.startswith(("contr_", "expand_"))
+                              else leaf)
+    return [{"params": t} for t in trees]
+
+
+def stack_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Stacks leave a predictor in float32, or float64 in a float64 run
+    (``values_tpu/inference/engine.py:195-205``)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def make_grouped_ensemble_predictor(members: int):
+    """``predict(weights, x, generator=None)`` -> ((M, B, D, H, W, C)
+    softmax stack, None): one fused forward of the grouped ``weights``
+    (:func:`cast_weights` layout) over x (B, D, H, W, 1), the softmax
+    taken in float32."""
+    def predict(weights, x, generator=None):
+        logits = grouped_forward_fused(weights, x, members)
+        probs = torch.softmax(logits.to(stack_dtype(x.dtype)), dim=-1)
+        return probs.movedim(-2, 0), None
+    return predict
+
+
+def make_grouped_aleatoric_predictor(members: int,
+                                     n_aleatoric_samples: int = 10):
+    """``predict(weights, x, generator)`` -> ((M*S, B, D, H, W, C) softmax
+    stack, sigma stack of the same shape), member-major then sample, as
+    the JAX package orders its keys: one fused forward gives (mu, s) per
+    member, ``eps`` (M, S, B, D, H, W, C) is drawn from ``generator`` in
+    the stacks' type, and :func:`aleatoric_softmax_samples` maps them."""
+    def predict(weights, x, generator: Optional[torch.Generator]):
+        out = grouped_forward_fused(weights, x, members)
+        out = out.to(stack_dtype(x.dtype)).movedim(-2, 0)  # (M, B, .., 2C)
+        mu, s = torch.chunk(out, 2, dim=-1)
+        eps = torch.randn((members, n_aleatoric_samples) + tuple(mu.shape[1:]),
+                          generator=generator, dtype=mu.dtype,
+                          device=mu.device)
+        return aleatoric_softmax_samples(mu, s, eps)
+    return predict

@@ -2,8 +2,8 @@
 grouped ensemble weights of :mod:`values_tpu_torch.models.ensemble_unet3d`.
 
 Counterpart of ``values_tpu/models/torch_import.py`` (``strip_model_prefix``
-:48, ``unet3d_params_to_torch`` :173-245, ``load_reference_checkpoint``
-:258-274) and of
+:48, ``unet3d_params_to_torch`` :173-245, ``export_reference_checkpoint``
+:248, ``load_reference_checkpoint`` :258-274) and of
 ``values_tpu/models/ensemble_unet3d.py::group_member_variables`` (:187-230).
 The port keeps its own copies: it imports nothing of the JAX package.
 
@@ -124,6 +124,15 @@ def require_unet3d(hparams: Any, path: str) -> None:
         raise NotImplementedError(
             f"{path}: HRNet checkpoints belong to the 2D slice of the port "
             "(ROADMAP.md, Queue 1: \"2D\"), which is not ported yet")
+
+
+def export_reference_checkpoint(path: str, variables: Mapping[str, Any],
+                                hyper_parameters: Dict[str, Any]) -> None:
+    """Write flax UNet3D ``variables`` as a reference-compatible
+    Lightning-style ``.ckpt``: ``state_dict`` from
+    :func:`unet3d_params_to_torch` and ``hyper_parameters``."""
+    torch.save({"state_dict": unet3d_params_to_torch(variables),
+                "hyper_parameters": hyper_parameters}, path)
 
 
 def load_reference_checkpoint(path: str

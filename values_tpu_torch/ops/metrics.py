@@ -1,14 +1,17 @@
-"""Micro Dice with torchmetrics' deleted-column ``ignore_index``, and NLL.
+"""Micro Dice with torchmetrics' deleted-column ``ignore_index``, NLL,
+and the test metrics of ``metrics.json``.
 
-Counterpart of ``values_tpu/ops/metrics.py:41-74`` and :154-161, and of
-the rater mean in ``values_tpu/inference/scoring.py:94-107`` (reference:
-test_3D.py:250-281): one-hot both label maps, delete the ``ignore_index``
+Counterpart of ``values_tpu/ops/metrics.py:41-181``, and of the rater
+mean in ``values_tpu/inference/scoring.py:94-107`` (reference:
+test_3D.py:250-320): one-hot both label maps, delete the ``ignore_index``
 column, then ``2 tp / (2 tp + fp + fn)`` over everything, 0 where the
-denominator is 0.
+denominator is 0. :func:`generalized_energy_distance` and
+:func:`per_rater_test_metrics` are the sliding-window CLI's per-volume
+metrics.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -80,3 +83,76 @@ def mean_rater_dice(seg: torch.Tensor, gt: torch.Tensor,
     else:
         dice = dice_from_stats(*dice_stats(seg, gt, ignore_index, dims))
     return dice.to(torch.float32)
+
+
+def _pairwise_stats(a: torch.Tensor, b: torch.Tensor,
+                    ignore_index: Optional[int]) -> torch.Tensor:
+    """(N, M, 3) (tp, fp, fn) of every ordered pair of rows of label
+    stacks a (N, V) and b (M, V): the micro Dice over the reference's
+    repeat_interleave x tile stacking (test_3D.py:285-320) is that of
+    their sums, without N*M copies of the volumes."""
+    return torch.stack([torch.stack(dice_stats(row.expand_as(b), b,
+                                               ignore_index, dim=(1,)), -1)
+                        for row in a])
+
+
+def pairwise_dice_matrix(a: torch.Tensor, b: torch.Tensor,
+                         ignore_index: Optional[int] = None) -> torch.Tensor:
+    """(N, M) per-pair micro Dices between label stacks (N, V), (M, V)."""
+    stats = _pairwise_stats(a, b, ignore_index)
+    return dice_from_stats(stats[..., 0], stats[..., 1], stats[..., 2])
+
+
+def _pooled_dice(a, b, ignore_index):
+    """One micro Dice over all ordered pairs of rows of a and b."""
+    tp, fp, fn = _pairwise_stats(a, b, ignore_index).sum(dim=(0, 1))
+    return dice_from_stats(tp, fp, fn)
+
+
+def generalized_energy_distance(pred_softmax: torch.Tensor,
+                                ground_truth: torch.Tensor,
+                                ignore_index: int = 0,
+                                ged_only: bool = False
+                                ) -> Dict[str, torch.Tensor]:
+    """GED between N predictions (N, C, *spatial) (softmax, or count-
+    normalized sums) and M rater maps (M, *spatial); with M > 1 also the
+    best Dice of each rater and the mean best Dice of the predictions
+    (``values_tpu/ops/metrics.py:96-151``)."""
+    n, m = pred_softmax.shape[0], ground_truth.shape[0]
+    flat_pred = torch.argmax(pred_softmax, dim=1).reshape(n, -1)
+    flat_gt = ground_truth.long().reshape(m, -1)
+    dist_gt_pred = 1.0 - _pooled_dice(flat_pred, flat_gt, ignore_index)
+    # the reference passes ignore_index to d(pred, pred) only when it is
+    # 0, and to d(gt, gt) only when it occurs (test_3D.py:303-319)
+    dist_pred_pred = 1.0 - _pooled_dice(
+        flat_pred, flat_pred, ignore_index if ignore_index == 0 else None)
+    gg_ignore = ignore_index if bool((flat_gt == ignore_index).any()) \
+        else None
+    dist_gt_gt = 1.0 - _pooled_dice(flat_gt, flat_gt, gg_ignore)
+    out = {"ged": 2.0 * dist_gt_pred - dist_pred_pred - dist_gt_gt}
+    if m > 1 and not ged_only:
+        dice = pairwise_dice_matrix(flat_pred, flat_gt, ignore_index)
+        # the reference's running max starts at 0
+        per_rater = torch.clamp(dice.max(dim=0).values, min=0.0)
+        for idx in range(m):
+            out[f"max dice rater {idx}"] = per_rater[idx]
+        out["max dice pred"] = torch.clamp(dice.max(dim=1).values,
+                                           min=0.0).mean()
+    return out
+
+
+def per_rater_test_metrics(output_softmax: torch.Tensor,
+                           ground_truth: torch.Tensor
+                           ) -> Dict[str, torch.Tensor]:
+    """SoftDice + NLL loss and micro Dice (``ignore_index`` 0) of a (1, C,
+    *spatial) softmax against each rater map of (R, *spatial), averaged
+    over the raters (``:164-181``; reference: test_3D.py:250-281)."""
+    from .losses import soft_dice_loss  # losses imports this module
+    losses, dices = [], []
+    for rater in range(ground_truth.shape[0]):
+        gt = ground_truth[rater][None].long()
+        losses.append(soft_dice_loss(output_softmax, gt)
+                      + nll_loss(torch.log(output_softmax), gt))
+        dices.append(dice_score(output_softmax, gt, ignore_index=0))
+    return {"loss": torch.stack(losses).mean(),
+            "dice": torch.stack(dices).mean()}

@@ -11,10 +11,12 @@ test_3D.py:486-534):
 
 The one-pass kernel form of :func:`fused_sample_statistics` is
 :func:`values_tpu_torch.ops.kernels.entropy.fused_entropy`.
+:func:`aleatoric_softmax_samples` is the C1 step of the aleatoric
+predictors that keep every sample (test_3D.py:458-469).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -49,3 +51,18 @@ def uncertainty_measures(softmax_preds: torch.Tensor,
     return {"pred_entropy": stats["pred_entropy"],
             "aleatoric_uncertainty": mi if ssn else ee,
             "epistemic_uncertainty": ee if ssn else mi}
+
+
+def aleatoric_softmax_samples(mu: torch.Tensor, s: torch.Tensor,
+                              eps: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The aleatoric predictors' samples, given their normals: mu and s
+    (M, B, *spatial, C), eps (M, S, B, *spatial, C) -> the softmax of
+    ``mu + exp(s/2) * eps`` over C and ``exp(s/2)`` repeated for each
+    sample, both (M*S, B, *spatial, C), member-major
+    (``values_tpu/inference/predictors.py:122-143``; the reference keeps
+    one sigma per member for every sample)."""
+    sigma = torch.exp(s / 2.0)
+    probs = torch.softmax(mu[:, None] + sigma[:, None] * eps, dim=-1)
+    sigmas = sigma[:, None].expand_as(probs)
+    return probs.flatten(0, 1), sigmas.flatten(0, 1)

@@ -20,7 +20,8 @@ the flax-layout parameter tree as numpy, the config, epoch and step. The
 torch optimizer's state goes under ``torch_optimizer_state``, not the
 JAX package's ``opt_state``, so a JAX ``fit`` resuming from a port
 checkpoint starts a fresh optax state. Orbax checkpoint directories are a
-JAX library's format and raise ``NotImplementedError``.
+JAX library's format and raise ``NotImplementedError`` for good; the
+message names the JAX package's conversion.
 """
 from __future__ import annotations
 
@@ -31,13 +32,17 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.io import save_pickle
 from ..models.torch_import import (load_reference_checkpoint,
                                    require_unet3d, unet3d_params_to_torch)
 
 FORMAT_KEY = "values_tpu_checkpoint"
 TORCH_OPTIMIZER_KEY = "torch_optimizer_state"
-ORBAX = ("orbax checkpoints are not ported to values_tpu_torch (ROADMAP.md,"
-         " Queue 1: 'Joint ensemble training')")
+ORBAX = ("orbax checkpoints are a JAX library's format and stay outside "
+         "values_tpu_torch for good, since orbax imports jax (ROADMAP.md, "
+         "'Not ported, on purpose'); convert one with the JAX package: "
+         "values_tpu.training.checkpoint.load_any_checkpoint, then "
+         "save_checkpoint, which writes the pickle format")
 
 
 def to_numpy_tree(tree: Any) -> Any:
@@ -73,9 +78,7 @@ def save_checkpoint(path: str, variables: Any, hyper_parameters: Dict,
                "global_step": global_step}
     if torch_optimizer_state is not None:
         payload[TORCH_OPTIMIZER_KEY] = to_numpy_tree(torch_optimizer_state)
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    with open(path, "wb") as f:
-        pickle.dump(payload, f)
+    save_pickle(payload, path)
 
 
 def is_orbax_checkpoint(path: str) -> bool:

@@ -68,6 +68,12 @@ def _channel_first(x: torch.Tensor) -> torch.Tensor:
     return torch.movedim(x, -1, 1)
 
 
+def check_patch_size(patch_size: int) -> None:
+    if patch_size % PATCH_MULTIPLE:
+        raise ValueError(f"patch_size={patch_size} must be a multiple of "
+                         f"{PATCH_MULTIPLE} (four 2x pools)")
+
+
 class Experiment:
     def __init__(self, cfg: Config, device=None):
         self.cfg = cfg
@@ -109,14 +115,12 @@ class Experiment:
                                 interval="epoch")
 
     # ------------------------------------------------------------------
-    def init_state(self, seed: int, patch_size: int) -> TrainState:
+    def initial_params(self, seed: int) -> Dict[str, Any]:
         """The reference's torch initialisation of the port's UNet3D,
-        under ``torch.manual_seed(seed)`` in a forked RNG, as a flax
-        tree: the heads flax never creates (``output_reconstruction_map``,
-        ``final`` beside ``final_aleatoric``) are left out."""
-        if patch_size % PATCH_MULTIPLE:
-            raise ValueError(f"patch_size={patch_size} must be a multiple "
-                             f"of {PATCH_MULTIPLE} (four 2x pools)")
+        under ``torch.manual_seed(seed)`` in a forked RNG, as a flax tree
+        of numpy arrays: the heads flax never creates
+        (``output_reconstruction_map``, ``final`` beside
+        ``final_aleatoric``) are left out."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(int(seed))
             model = self._build_model()
@@ -124,7 +128,13 @@ class Experiment:
         params.pop("output_reconstruction_map", None)
         if "final_aleatoric" in params:
             params.pop("final", None)
-        return self.state_from_variables({"params": params})
+        return params
+
+    def init_state(self, seed: int, patch_size: int) -> TrainState:
+        """A state of :meth:`initial_params` for ``patch_size`` patches."""
+        check_patch_size(patch_size)
+        return self.state_from_variables(
+            {"params": self.initial_params(seed)})
 
     def state_from_variables(self, variables: Dict[str, Any]) -> TrainState:
         """A state from flax-layout variables (numpy or tensors), copied
