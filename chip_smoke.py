@@ -55,6 +55,28 @@ Phases, each of which raises on failure:
    128^3 volumes at f32, held against the plain path given the same
    normals; the engine's windows and volumes per second at f32 and bf16,
    and a profile of one 12-window chunk;
+8f. the MC-dropout path: 5 dropout members (random weights) through
+   ``make_dropout_scorer`` with 10 passes a batch of 32 (18 K1 launches a
+   pass, K1's unfused form: statistics without prologue at the norm
+   convs), timed over 5 batches (median, min, max), peak memory, one
+   batch profiled, a 2-volume float32 run held against per-member plain
+   UNet3D modules given the same masks; one dropout pass timed beside
+   one fused forward (the cost of breaking the fusion at 17 sites);
+8g. the TTA path: the deterministic path's members through
+   ``make_tta_scorer`` (16 fused forwards a batch, 16 x 18 K1 launches),
+   as 8f, the plain path on the same flipped and noisy inputs;
+8h. the SSN path: 5 SSN members (rank 10) through ``make_ssn_scorer``
+   with 10 samples each (one trunk forward, 18 K1 launches a batch), as
+   8f, the plain path per-member SsnUNet3D modules given the same
+   normals; and the degenerate fallback on the card (cov_diag ~0 with a
+   huge factor: every member flagged, finite scores);
+8i. the score CLI over the 64 LIDC-style volumes: the dropout set with
+   ``--n_pred 10``, ``-tta`` on the deterministic set and on the dropout
+   set, and the SSN set; launches counted, each JSON against its scorer;
+8j. the test_3d CLI on the Case_1 validation split at f32: ``-tta`` on
+   the members of 8c, ``--n_pred 4`` on a dropout checkpoint and on one
+   SSN checkpoint, each tree checked file by file and its launches
+   counted; the engine's windows/s under ``-tta``;
 9. time each kernel at its path's shape beside its bound, its plain
    version and a library yardstick (K3: the stock-torch sampling loop,
    and its SFU floor, computed at the card's maximum SM clock; K2: both
@@ -89,6 +111,9 @@ N_MEMBERS, PATCH, CLASSES, FILTERS = 5, 64, 2, 8
 BATCH, N_BATCHES, SEED = 32, 3, 0
 AGG_PATCH, THRESHOLD = 10, 0.3
 N_ALEATORIC = 10          # logit samples per member (the reference's default)
+# MC-dropout passes and SSN samples per member; the SSN's rank
+# (configs/model/ssn_unet3D_config.yaml); timed runs of each stochastic path
+N_PRED, SSN_RANK, TIMED_RUNS = 10, 10, 5
 ALEATORIC_BATCHES = 2
 CLI_VOLUMES = 64
 CLI_SEED = 123            # the checkpoints' hparams["seed"]
@@ -254,6 +279,15 @@ K1_CASES = [
      "none", True, "tile8"),
     ("ragged 6x7x5, 32+32->64, leaky", 2, 6, 7, 5, 5, 32, 32, 64, True,
      "leaky", False, "tile4"),
+    # the MC-dropout forward's unfused form at the scorers' batch: the norm
+    # convs emit statistics with no prologue, the expand convs take the
+    # materialized concat with a leaky epilogue
+    ("dropout B=32 64^3, 8->8, stats", 32, 64, 64, 64, 5, 8, 0, 8, False,
+     "none", True, "shallow"),
+    ("dropout B=32 64^3, 16->8, leaky", 32, 64, 64, 64, 5, 16, 0, 8, False,
+     "leaky", False, "shallow"),
+    ("dropout B=32 8^3, 32->64, stats", 32, 8, 8, 8, 5, 32, 0, 64, False,
+     "none", True, "tile8"),
 ]
 
 # Tolerances, stated with their reasons:
@@ -638,17 +672,22 @@ def check_k1b():
 
 # -- the main path ------------------------------------------------------------
 
-def member_state_dicts(seed: int, aleatoric: bool = False):
+def member_state_dicts(seed: int, aleatoric: bool = False,
+                       ssn: bool = False):
     """Per-member UNet3D state_dicts (with the ``final_aleatoric`` head
-    when ``aleatoric``), drawn with numpy from ``seed`` at each
-    parameter's fan-in scale (torch's default init range)."""
+    when ``aleatoric``; SsnUNet3D's, rank SSN_RANK, when ``ssn``), drawn
+    with numpy from ``seed`` at each parameter's fan-in scale (torch's
+    default init range)."""
     import torch
+    from values_tpu_torch.models.ssn_unet3d import SsnUNet3D
     from values_tpu_torch.models.unet3d import UNet3D
     rs = np.random.RandomState(seed)
     states = []
     for _ in range(N_MEMBERS):
-        ref = UNet3D(CLASSES, initial_filter_size=FILTERS,
-                     aleatoric_loss=aleatoric).state_dict()
+        ref = (SsnUNet3D(CLASSES, initial_filter_size=FILTERS,
+                         rank=SSN_RANK) if ssn else
+               UNet3D(CLASSES, initial_filter_size=FILTERS,
+                      aleatoric_loss=aleatoric)).state_dict()
         state = {}
         for key, t in ref.items():
             # torch's default init range: the weight's dim-0 slice size
@@ -902,19 +941,23 @@ def write_cli_data(root: str, rs) -> dict:
     return data
 
 
-def write_checkpoints(root: str, name: str, states, aleatoric: bool):
-    """One reference-format ``.ckpt`` per member state_dict."""
+def write_checkpoints(root: str, name: str, states, aleatoric: bool,
+                      model=None):
+    """One reference-format ``.ckpt`` per member state_dict; ``model``
+    updates the UNet3D model config (dropout, the SSN)."""
     import torch
     hparams = {
         "seed": CLI_SEED, "data_input_dir": root,
         "model": {"_target_": "values_tpu.models.unet3d.UNet3D",
                   "num_classes": CLASSES, "in_channels": 1,
                   "initial_filter_size": FILTERS, "kernel_size": 3,
-                  "do_instancenorm": True},
+                  "do_instancenorm": True, **(model or {})},
         "datamodule": dict(LIDC_DATAMODULE, splits_path=os.path.join(
             root, "splits_texture.pkl"))}
+    if aleatoric or model:
+        hparams["n_aleatoric_samples"] = N_ALEATORIC
     if aleatoric:
-        hparams.update(aleatoric_loss=True, n_aleatoric_samples=N_ALEATORIC)
+        hparams["aleatoric_loss"] = True
     paths = []
     for i, state in enumerate(states):
         path = os.path.join(root, f"{name}_{i}.ckpt")
@@ -1395,17 +1438,18 @@ def write_big_volumes(root: str) -> list:
     return subjects
 
 
-def check_result_tree(result_dir: str, subjects) -> None:
+def check_result_tree(result_dir: str, subjects,
+                      n_preds: int = N_MEMBERS) -> None:
     """The CLI's output tree, file by file: every map of every volume
-    present and finite, and metrics.json with each volume's metrics and
-    their mean."""
+    (``n_preds`` samples) present and finite, and metrics.json with each
+    volume's metrics and their mean."""
     from values_tpu_torch.core import nifti
     stems = [s.split(".")[0] for s in subjects]
     want = {"metrics.json"}
     for stem in stems:
         want |= {f"input/{stem}.nii.gz"}
         want |= {f"gt_seg/{stem}_{r:02d}.nii.gz" for r in range(RATERS)}
-        for pred in ["mean"] + [f"{p + 1:02d}" for p in range(N_MEMBERS)]:
+        for pred in ["mean"] + [f"{p + 1:02d}" for p in range(n_preds)]:
             want.add(f"pred_seg/{stem}_{pred}.nii.gz")
             want |= {f"pred_prob/{stem}_{pred}_{c + 1:02d}.nii.gz"
                      for c in range(CLASSES)}
@@ -1702,6 +1746,508 @@ def engine_throughput(ckpts, big_dir: str, subjects, card: str):
             f"(K1 {k1:.2f} ms), memory copies {copy_ms:.2f} ms, idle share "
             f"of the kernels {idle}; card {card}")
     return out
+
+
+# -- the MC-dropout, TTA and SSN paths --------------------------------------------
+
+@contextlib.contextmanager
+def recorded(module, name: str):
+    """Record what ``module.name`` (a draw function) returns while the
+    context is open, in call order."""
+    orig, calls = getattr(module, name), []
+
+    def record(*args, **kwargs):
+        calls.append(orig(*args, **kwargs))
+        return calls[-1]
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def plain_modules(states, **kw):
+    """Per-member plain modules on the card (UNet3D with ``kw``, or
+    SsnUNet3D for SSN states), unfused, cuDNN with TF32 off."""
+    from values_tpu_torch.models.ssn_unet3d import SsnUNet3D
+    from values_tpu_torch.models.unet3d import UNet3D
+    nets = []
+    for state in states:
+        net = (SsnUNet3D(CLASSES, initial_filter_size=FILTERS, rank=SSN_RANK)
+               if "mean_conv.weight" in state else
+               UNet3D(CLASSES, initial_filter_size=FILTERS, **kw))
+        net.load_state_dict(state, strict=True)
+        nets.append(net.cuda())
+    return nets
+
+
+def member_masks(masks, m: int):
+    """Member m's channels of a pass's grouped keep masks."""
+    return [k[..., m * (k.shape[-1] // N_MEMBERS):
+              (m + 1) * (k.shape[-1] // N_MEMBERS)] for k in masks]
+
+
+def plain_scores(carry, n_samples: int, gt):
+    from values_tpu_torch.inference.scoring import score_from_carry
+    return score_from_carry(carry, n_samples, gt, agg_patch=AGG_PATCH,
+                            threshold=THRESHOLD, ignore_index=0)
+
+
+def plain_dropout_scores(states, vols, gt, passes):
+    """The dropout scorer's function from plain parts: per-member UNet3D
+    modules with dropout, each pass given the masks the scorer drew (its
+    member's channels), float32 softmax, each sample streamed in."""
+    import torch
+    from values_tpu_torch.inference.scoring import streaming_update
+    nets = plain_modules(states, do_dropout=True)
+    carry = None
+    with torch.no_grad():
+        for masks in passes:
+            for m, net in enumerate(nets):
+                logits = net(vols, keep_masks=member_masks(masks, m))
+                carry = streaming_update(carry,
+                                         torch.softmax(logits, dim=-1))
+    return plain_scores(carry, len(passes) * N_MEMBERS, gt)
+
+
+def plain_tta_scores(states, vols, gt, noise):
+    """The TTA scorer's function from plain parts: the same noise, the 16
+    variants through per-member UNet3D modules, un-flipped, streamed."""
+    import torch
+    from values_tpu_torch.inference.scoring import streaming_update
+    from values_tpu_torch.models.ensemble_unet3d import FLIP_COMBOS
+    nets = plain_modules(states)
+    variance, field = noise
+    carry = None
+    with torch.no_grad():
+        for base in (vols, vols + field * variance):
+            for axes in ((),) + FLIP_COMBOS:
+                xv = torch.flip(base, axes) if axes else base
+                for net in nets:
+                    p = torch.softmax(net(xv), dim=-1)
+                    carry = streaming_update(
+                        carry, torch.flip(p, axes) if axes else p)
+    return plain_scores(carry, 16 * N_MEMBERS, gt)
+
+
+def plain_ssn_scores(states, vols, gt, normals):
+    """The SSN scorer's function from plain parts: per-member SsnUNet3D
+    modules (their trunk unfused, their heads' low-rank normal), each
+    sample given the normals the scorer drew (member-major)."""
+    import torch
+    from values_tpu_torch.inference.scoring import streaming_update
+    nets = plain_modules(states)
+    carry, draws = None, iter(normals)
+    with torch.no_grad():
+        for net in nets:
+            dist = net(vols)
+            factor, sqrt_diag = dist.sampling_terms()
+            for _ in range(N_PRED):
+                eps_r, eps_d = next(draws)
+                smp = (dist.mean + torch.einsum("bnr,br->bn", factor,
+                                                eps_r[0])
+                       + sqrt_diag * eps_d[0])
+                logits = smp.reshape((vols.shape[0], CLASSES)
+                                     + (PATCH,) * 3).movedim(1, -1)
+                carry = streaming_update(carry,
+                                         torch.softmax(logits, dim=-1))
+    return plain_scores(carry, N_PRED * N_MEMBERS, gt)
+
+
+def stochastic_batches(seed: int, n: int, batch: int = 0):
+    """n batches of ``batch`` (default BATCH) 64^3 volumes and masks on
+    the card, drawn as the deterministic path draws its batches."""
+    import torch
+    rs = np.random.RandomState(seed)
+    batch = batch or BATCH
+    out = []
+    for _ in range(n):
+        vols = rs.rand(batch, PATCH, PATCH, PATCH, 1).astype(np.float32)
+        gt = (rs.rand(batch, PATCH, PATCH, PATCH) > 0.7).astype(np.uint8)
+        out.append((torch.from_numpy(vols).cuda(),
+                    torch.from_numpy(gt).cuda()))
+    return out
+
+
+def stochastic_path(label: str, make, grouped, k1_per_batch: int, plain,
+                    draw, seed: int, card: str):
+    """One stochastic scorer at full width: ``make(dtype)`` builds it; a
+    warm-up batch, then TIMED_RUNS batches of BATCH, each timed alone
+    (host clock ending in a synchronize), K1's launches counted from 0
+    over them, peak memory over them; one batch under the profiler; a
+    2-volume float32 run against ``plain(vols, gt, draws)``, the draws
+    recorded from the scorer's draw function ``draw`` (module, name)
+    within atol + rtol 1e-3. Returns the numbers."""
+    import torch
+    from values_tpu_torch.inference.scoring import score_rows
+    score = make(torch.bfloat16)
+    batches = stochastic_batches(seed, TIMED_RUNS + 1)
+    score(grouped, *batches[0], 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    for i, b in enumerate(batches[1:]):
+        t0 = time.perf_counter()
+        out = score(grouped, *b, 2 + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if tuple(out.shape) != (10, BATCH) or not bool(
+                torch.isfinite(out).all()):
+            raise AssertionError(f"{label}: scores of shape "
+                                 f"{tuple(out.shape)} are not a finite "
+                                 "(10, B) matrix")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expect_launches(launches, {"conv3d_fused": k1_per_batch * TIMED_RUNS,
+                               "conv3d_fused_train": 0, "fused_entropy": 0,
+                               "sampled_softmax_stats": 0}, label)
+    table, wall, busy, k1, _ = device_times(
+        lambda: score(grouped, *batches[1], 99))
+    with open(os.path.join(OUT_DIR, "profile_" + label.replace(" ", "_")
+                           + ".txt"), "w") as fh:
+        fh.write(table.table(sort_by="self_device_time_total",
+                             row_limit=40, max_name_column_width=120))
+    rates = sorted(BATCH / t for t in times)
+    vps = float(np.median(rates))
+    idle = "not measured" if not busy else f"{1 - busy / wall:.3f}"
+    log(f"{label}: {TIMED_RUNS} batches of {BATCH} x {PATCH}^3, bf16, "
+        f"each timed alone: median {vps:.2f} volumes/s (min {rates[0]:.2f},"
+        f" max {rates[-1]:.2f}; batch ms " + ", ".join(
+            f"{t * 1e3:.1f}" for t in times) + f"); peak {peak:.2f} GB; "
+        f"launches {json.dumps(launches)} ({k1_per_batch} K1 a batch); one "
+        f"batch under the profiler: device {busy:.2f} of {wall:.2f} ms "
+        f"wall, idle share {idle}, K1 {k1:.2f} ms; card {card}")
+
+    # correctness: 2 volumes in float32 against the plain path, given the
+    # draws the scorer made
+    score32 = make(torch.float32)
+    vols, gt = stochastic_batches(seed + 1, 1, 2)[0]
+    with recorded(*draw) as draws:
+        got = score32(grouped, vols, gt, 5)
+    want = plain(vols, gt, draws)
+    err = (got - want).abs()
+    # atol + rtol 1e-3, as the deterministic path's check: float32
+    # rounding of the fused (or K1's unfused) and the plain forward on
+    # image-level sums of 64^3 voxels; Dice moves ~1e-5 per voxel whose
+    # argmax ties
+    for i, name in enumerate(score_rows()):
+        log(f"  {label} f32 vs plain path {name:34s} max_abs_err "
+            f"{float(err[i].max()):.3e}")
+    if not bool((err <= 1e-3 + 1e-3 * want.abs()).all()):
+        raise AssertionError(f"{label}: the float32 scorer disagrees with "
+                             "the plain path")
+    return {"launches": launches["conv3d_fused"], "volumes_per_s": vps,
+            "min": rates[0], "max": rates[-1], "peak_gb": peak,
+            "device_ms": busy, "wall_ms": wall, "k1_ms": k1,
+            "max_abs_err": float(err.max())}
+
+
+def dropout_path(card: str):
+    """5 dropout members (random weights), ``make_dropout_scorer`` with
+    N_PRED passes: 18 K1 launches a pass (K1's unfused form: statistics
+    without prologue at the 8 norm convs), N_PRED passes a batch."""
+    from values_tpu_torch.inference.scoring import make_dropout_scorer
+    from values_tpu_torch.models import ensemble_unet3d
+    from values_tpu_torch.models.torch_import import group_member_state_dicts
+    states = member_state_dicts(SEED + 40)
+    grouped = group_member_state_dicts(states)
+
+    def make(dtype):
+        return make_dropout_scorer(N_MEMBERS, PATCH, n_pred=N_PRED,
+                                   agg_patch=AGG_PATCH, threshold=THRESHOLD,
+                                   dtype=dtype)[0]
+
+    out = stochastic_path(
+        "MC-dropout path", make, grouped, 18 * N_PRED,
+        lambda vols, gt, draws: plain_dropout_scores(states, vols, gt,
+                                                     draws),
+        (ensemble_unet3d, "draw_dropout_masks"), 40, card)
+    return out, grouped
+
+
+def fusion_cost(grouped, card: str):
+    """One dropout pass (K1 unfused, the 17 masks drawn and applied)
+    beside one fused deterministic forward, both at batch BATCH in bf16
+    on the same weights and input: CUDA-event time (median of 10) and
+    device kernel time under the profiler."""
+    import torch
+    from values_tpu_torch.models.ensemble_unet3d import (
+        cast_weights, dropout_forward, grouped_forward_fused)
+    weights = cast_weights(grouped, torch.bfloat16, "cuda")
+    x = stochastic_batches(41, 1)[0][0].to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fns = {"dropout pass": lambda: dropout_forward(weights, x, N_MEMBERS,
+                                                   gen),
+           "fused forward": lambda: grouped_forward_fused(weights, x,
+                                                          N_MEMBERS)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in fns.items():
+            ms = cuda_ms(fn)
+            _, wall, busy, k1, _ = device_times(fn)
+            out[name] = {"ms": ms, "device_ms": busy, "k1_ms": k1}
+    d, f = out["dropout pass"], out["fused forward"]
+    log(f"dropout pass vs fused forward (batch {BATCH}, bf16, G = "
+        f"{N_MEMBERS}): {d['ms']:.3f} vs {f['ms']:.3f} ms (CUDA events, "
+        f"median of 10; ratio {d['ms'] / f['ms']:.2f}); device kernels "
+        f"{d['device_ms']:.2f} vs {f['device_ms']:.2f} ms, K1 "
+        f"{d['k1_ms']:.2f} vs {f['k1_ms']:.2f} ms; card {card}")
+    return out
+
+
+def tta_path(card: str):
+    """The 5 softmax members of the deterministic path through
+    ``make_tta_scorer``: 16 fused forwards a batch, 16 x 18 K1
+    launches."""
+    from values_tpu_torch.inference.scoring import make_tta_scorer
+    from values_tpu_torch.models import ensemble_unet3d
+    from values_tpu_torch.models.torch_import import group_member_state_dicts
+    states = member_state_dicts(SEED)
+    grouped = group_member_state_dicts(states)
+
+    def make(dtype):
+        return make_tta_scorer(N_MEMBERS, PATCH, agg_patch=AGG_PATCH,
+                               threshold=THRESHOLD, dtype=dtype)[0]
+
+    return stochastic_path(
+        "TTA path", make, grouped, 16 * 18,
+        lambda vols, gt, draws: plain_tta_scores(states, vols, gt,
+                                                 draws[0]),
+        (ensemble_unet3d, "draw_tta_noise"), 50, card)
+
+
+def ssn_path(card: str):
+    """5 SSN members (random weights, rank SSN_RANK), ``make_ssn_scorer``
+    with N_PRED samples each: one fused trunk forward a batch (18 K1
+    launches); then the degenerate fallback on the card: heads whose
+    cov_diag is ~0 and whose factor is huge give finite scores, every
+    item flagged degenerate."""
+    import torch
+    from values_tpu_torch.inference.scoring import make_ssn_scorer
+    from values_tpu_torch.models import ssn_unet3d
+    from values_tpu_torch.models.torch_import import group_member_state_dicts
+    states = member_state_dicts(SEED + 50, ssn=True)
+    grouped = group_member_state_dicts(states)
+
+    def make(dtype):
+        return make_ssn_scorer(CLASSES, N_MEMBERS, PATCH, n_pred=N_PRED,
+                               rank=SSN_RANK, agg_patch=AGG_PATCH,
+                               threshold=THRESHOLD, dtype=dtype)[0]
+
+    out = stochastic_path(
+        "SSN path", make, grouped, 18,
+        lambda vols, gt, draws: plain_ssn_scores(states, vols, gt, draws),
+        (ssn_unet3d, "draw_ssn_normals"), 60, card)
+    bad = {k: dict(v) for k, v in grouped.items()}
+    bad["log_cov_diag_conv"] = {
+        "kernel": torch.zeros_like(grouped["log_cov_diag_conv"]["kernel"]),
+        "bias": torch.full_like(grouped["log_cov_diag_conv"]["bias"],
+                                -80.0)}
+    bad["cov_factor_conv"] = dict(grouped["cov_factor_conv"], bias=torch.full_like(
+        grouped["cov_factor_conv"]["bias"], 1e15))
+    vols, gt = stochastic_batches(61, 1, 2)[0]
+    with recorded(ssn_unet3d.LowRankMVN, "degenerate") as flags:
+        got = make(torch.bfloat16)(bad, vols, gt, 3)
+    degenerate = [bool(f.all()) for f in flags]
+    if not bool(torch.isfinite(got).all()) or not all(degenerate):
+        raise AssertionError(f"SSN degenerate fallback: finite "
+                             f"{bool(torch.isfinite(got).all())}, every "
+                             f"member degenerate {degenerate}")
+    log(f"SSN degenerate fallback on the card: cov_diag ~0 (epsilon "
+        f"only) and a 1e15 factor: all {len(flags)} members flagged on "
+        f"every item, scores finite; card {card}")
+    return out
+
+
+def write_dropout_and_ssn_checkpoints(root: str):
+    """The score CLI's dropout set (the dropout path's states) and SSN
+    set (the SSN path's)."""
+    return {"dropout": write_checkpoints(root, "dropout",
+                                         member_state_dicts(SEED + 40),
+                                         False, {"do_dropout": True}),
+            "ssn": write_checkpoints(
+                root, "ssn", member_state_dicts(SEED + 50, ssn=True), False,
+                {"_target_": "values_tpu.models.ssn_unet3d.SsnUNet3D",
+                 "rank": SSN_RANK, "epsilon": 1e-5})}
+
+
+def stochastic_cli_path(card: str):
+    """``run_score`` over CLI_VOLUMES volumes at batch 32 for the dropout
+    set with ``--n_pred N_PRED``, ``-tta`` on the deterministic set and on
+    the dropout set, and the SSN set (``n_pred`` from the checkpoints'
+    ``n_aleatoric_samples``); each run's launches counted; each JSON
+    against its scorer with the CLI's batch seeds on the same batches."""
+    import torch
+    from values_tpu_torch.core.seed import make_generator
+    from values_tpu_torch.inference import scoring
+    from values_tpu_torch.inference.score import run_score, score_cli
+    from values_tpu_torch.models.torch_import import group_member_state_dicts
+    from values_tpu_torch.training.checkpoint import load_any_checkpoint
+    rows = scoring.score_rows()
+    n_batches = -(-CLI_VOLUMES // BATCH)
+    common = dict(agg_patch=AGG_PATCH, threshold=THRESHOLD,
+                  dtype=torch.bfloat16)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as root:
+        data = write_cli_data(root, np.random.RandomState(5))
+        ckpts = write_dropout_and_ssn_checkpoints(root)
+        ckpts["deterministic"] = write_checkpoints(
+            root, "det", member_state_dicts(SEED + 20), False)
+        runs = {  # name: (set, flags, K1 a batch, scorer)
+            "dropout --n_pred": ("dropout", ["--n_pred", str(N_PRED)],
+                                 18 * N_PRED, scoring.make_dropout_scorer(
+                                     N_MEMBERS, PATCH, n_pred=N_PRED,
+                                     **common)[0]),
+            "-tta": ("deterministic", ["-tta"], 16 * 18,
+                     scoring.make_tta_scorer(N_MEMBERS, PATCH, **common)[0]),
+            "dropout -tta": ("dropout", ["-tta"], 16 * 18,
+                             scoring.make_tta_scorer(
+                                 N_MEMBERS, PATCH, do_dropout=True,
+                                 **common)[0]),
+            "SSN": ("ssn", [], 18, scoring.make_ssn_scorer(
+                CLASSES, N_MEMBERS, PATCH, n_pred=N_ALEATORIC,
+                rank=SSN_RANK, **common)[0])}
+        subjects = sorted(data)
+        for name, (kind, flags, k1, score) in runs.items():
+            path = os.path.join(root, "out.json")
+            reset_launches()
+            t0 = time.perf_counter()
+            result = run_score(score_cli([
+                "--checkpoint_paths", *ckpts[kind], "-i", root, "--out",
+                path, "--test_split", "id", "--batch_size", str(BATCH),
+                "--agg_patch", str(AGG_PATCH), "--threshold",
+                str(THRESHOLD)] + flags))
+            seconds = time.perf_counter() - t0
+            launches = read_launches()
+            expect_launches(launches, {"conv3d_fused": k1 * n_batches,
+                                       "conv3d_fused_train": 0,
+                                       "fused_entropy": 0,
+                                       "sampled_softmax_stats": 0},
+                            f"CLI {name}")
+            if sorted(result) != subjects:
+                raise AssertionError(f"CLI {name}: the JSON does not hold "
+                                     f"the {CLI_VOLUMES} subjects")
+            # the JSON against its scorer on the same batches with the
+            # seeds run_score draws; K1's bfloat16 tolerance, as the
+            # deterministic CLI's check
+            grouped = group_member_state_dicts(
+                [load_any_checkpoint(p)[1] for p in ckpts[kind]])
+            gen = make_generator(CLI_SEED)
+            worst = 0.0
+            for i in range(0, len(subjects), BATCH):
+                chunk = subjects[i:i + BATCH]
+                vols = torch.from_numpy(np.stack([data[s][0]
+                                                  for s in chunk]))
+                gt = torch.from_numpy(np.stack([data[s][1] for s in chunk]))
+                seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
+                want = score(grouped, vols[..., None].cuda(), gt.cuda(),
+                             seed).cpu().numpy()
+                got = np.array([[result[s][r] for s in chunk] for r in rows])
+                err = np.abs(got - want)
+                worst = max(worst, float(err.max()))
+                if not np.isfinite(got).all() or (
+                        err > 2 ** -7 * np.abs(want) + 2e-3).any():
+                    raise AssertionError(f"CLI {name} disagrees with its "
+                                         "scorer on the same batches")
+            out[name] = launches["conv3d_fused"]
+            log(f"CLI {name}: {CLI_VOLUMES} volumes, {N_MEMBERS} "
+                f"checkpoints, batch {BATCH}: {seconds:.2f} s (checkpoint "
+                f"reading and volume loading included); launches "
+                f"{json.dumps(launches)}; against its scorer max_abs_err "
+                f"{worst:.3e}; card {card}")
+    return out
+
+
+def test3d_modes_path(joint_ckpts, train_root: str, card: str):
+    """``python -m values_tpu_torch.inference.test_3d`` over the Case_1
+    validation split (64^3, one window a volume) at f32: ``-tta`` on the
+    jointly trained members, ``--n_pred 4`` on a dropout copy of member
+    0, and ``--n_pred 4`` on one SSN checkpoint; each tree checked file by
+    file and each run's launches counted; then the engine's windows/s
+    under ``-tta`` (the median of 3 passes over the split)."""
+    import pickle as pkl
+    import torch
+    from values_tpu_torch.data.samples import get_val_test_data_samples
+    from values_tpu_torch.inference import test_3d
+    from values_tpu_torch.inference.engine import SlidingWindowEngine
+    from values_tpu_torch.models.torch_import import unet3d_params_from_torch
+    from values_tpu_torch.models.unet3d import UNet3D
+    from values_tpu_torch.training.checkpoint import (load_any_checkpoint,
+                                                      save_checkpoint)
+    root = tempfile.mkdtemp(dir=OUT_DIR, prefix="test3d_modes_")
+    with open(os.path.join(train_root, "Case_1", "splits.pkl"), "rb") as f:
+        val = sorted(pkl.load(f)[0]["val"])
+    hparams, state = load_any_checkpoint(joint_ckpts[0])
+    dropout = os.path.join(root, "dropout.ckpt")
+    save_checkpoint(dropout, unet3d_params_from_torch(state), dict(
+        hparams, model=dict(hparams["model"], do_dropout=True)))
+    ssn = os.path.join(root, "ssn.ckpt")
+    save_checkpoint(ssn, unet3d_params_from_torch(
+        member_state_dicts(SEED + 50, ssn=True)[0]), dict(hparams, model={
+            "_target_": "values_tpu.models.ssn_unet3d.SsnUNet3D",
+            "num_classes": CLASSES, "initial_filter_size": FILTERS,
+            "rank": SSN_RANK, "epsilon": 1e-5}))
+    runs = {"-tta": (joint_ckpts, ["-tta"], 16 * N_MEMBERS, 16),
+            "dropout --n_pred 4": ([dropout], ["--n_pred", "4"], 4, 4),
+            "SSN --n_pred 4": ([ssn], ["--n_pred", "4"], 4, 1)}
+    out = {}
+    for name, (paths, flags, samples, forwards) in runs.items():
+        save = os.path.join(root, name.split()[0].strip("-"))
+        reset_launches()
+        t0 = time.perf_counter()
+        carrier = test_3d.run_test(test_3d.test_cli(
+            ["--checkpoint_paths", *paths, "--save_dir", save,
+             "--test_split", "val", "--dtype", "float32"] + flags))
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        expect_launches(launches, {
+            "conv3d_fused": 18 * forwards * len(val),
+            "conv3d_fused_train": 0, "fused_entropy": 0,
+            "sampled_softmax_stats": 0}, f"test_3d {name}")
+        if any(v["softmax_pred"].shape[0] != samples
+               for v in carrier.data.values()):
+            raise AssertionError(f"test_3d {name}: not {samples} samples")
+        check_result_tree(os.path.join(save, hparams["exp_name"],
+                                       "test_results",
+                                       str(hparams["version"]), "val"),
+                          val, n_preds=samples)
+        out[f"test_3d {name}"] = launches["conv3d_fused"]
+        log(f"test_3d CLI {name} (val split, {len(val)} volumes of "
+            f"{PATCH}^3, {samples} samples each), f32: {seconds:.2f} s "
+            f"(checkpoint reading, volume loading and "
+            f"{len(val) * (1 + RATERS + (1 + samples) * (1 + CLASSES) + 3)}"
+            f" nii.gz maps included); launches {json.dumps(launches)}; "
+            f"card {card}")
+        shutil.rmtree(save)
+        del carrier
+
+    members = [unet3d_params_from_torch(load_any_checkpoint(p)[1])
+               for p in joint_ckpts]
+    samples = get_val_test_data_samples(
+        base_dir=os.path.join(train_root, "Case_1", "preprocessed"),
+        subject_ids=val, test=False, num_raters=RATERS, patch_size=PATCH)
+    engine = SlidingWindowEngine(UNet3D(CLASSES, initial_filter_size=FILTERS),
+                                 members, mode="tta", patch_size=PATCH,
+                                 window_batch=12, device="cuda")
+    engine.run_samples(samples[:1])
+    passes = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_samples(samples)
+        torch.cuda.synchronize()
+        passes.append(time.perf_counter() - t0)
+    rate = len(samples) / float(np.median(passes))
+    log(f"test_3d engine -tta ({N_MEMBERS} members x 16 variants, f32): 3 "
+        f"passes of {len(samples)} windows over the val split: median "
+        f"{float(np.median(passes)):.4f} s (min {min(passes):.4f}, max "
+        f"{max(passes):.4f}): {rate:.2f} windows/s (loading from disk and "
+        f"the copy back of {16 * N_MEMBERS} samples a window included); "
+        f"card {card}")
+    shutil.rmtree(root)
+    return out, rate
 
 
 def time_k1_f32_chunk():
@@ -2398,6 +2944,18 @@ def main() -> int:
         engine_rates = engine_throughput(joint_ckpts, big_dir, big_subjects,
                                          smi)
         shutil.rmtree(t3_root)
+    with phase("MC-dropout path", smi):
+        dropout, dropout_grouped = dropout_path(smi)
+        fusion = fusion_cost(dropout_grouped, smi)
+    with phase("TTA path", smi):
+        tta = tta_path(smi)
+    with phase("SSN path", smi):
+        ssn = ssn_path(smi)
+    with phase("score CLI: MC dropout, TTA, SSN", smi):
+        stochastic_cli = stochastic_cli_path(smi)
+    with phase("test_3d CLI: TTA, MC dropout, SSN", smi):
+        modes_launches, tta_windows_per_s = test3d_modes_path(
+            joint_ckpts, train_root, smi)
     with phase("kernel timings", smi):
         kernels = [time_k1(launches, vols.shape[0]),
                    time_k1b(train_runs["f32"][2]),
@@ -2410,7 +2968,14 @@ def main() -> int:
             {f"joint training {n} ({JOINT_STEPS} steps, G={N_MEMBERS})":
              joint[n]["launches"]["conv3d_fused"] for n in joint},
             **t3_launches,
-            **{"aleatoric engine f32": ale_engine["conv3d_fused"]})
+            **{"aleatoric engine f32": ale_engine["conv3d_fused"],
+               f"MC-dropout path ({TIMED_RUNS} batches, {N_PRED} passes)":
+               dropout["launches"],
+               f"TTA path ({TIMED_RUNS} batches, 16 variants)":
+               tta["launches"],
+               f"SSN path ({TIMED_RUNS} batches)": ssn["launches"]},
+            **{f"score CLI {n}": v for n, v in stochastic_cli.items()},
+            **modes_launches)
         kernels[1]["path_launches"] = {
             f"joint training {n} ({JOINT_STEPS} steps, G={N_MEMBERS})":
             joint[n]["launches"]["conv3d_fused_train"] for n in joint}
@@ -2482,6 +3047,16 @@ def main() -> int:
         f"f32 / bf16; test_3d CLI seconds " + ", ".join(
             f"{n} {d} {s:.2f}" for (n, d), s in t3_seconds.items())
         + f"; card {smi}")
+    log("headline, stochastic paths (ensemble-5, 64^3, bf16, batch "
+        f"{BATCH}; median of {TIMED_RUNS} batches, min-max): " + "; ".join(
+            f"{n} {r['volumes_per_s']:.2f} ({r['min']:.2f}-{r['max']:.2f}) "
+            f"volumes/s, device {r['device_ms']:.2f} ms a batch, peak "
+            f"{r['peak_gb']:.2f} GB" for n, r in (
+                (f"MC dropout x {N_PRED}", dropout), ("TTA x 16", tta),
+                (f"SSN x {N_PRED}", ssn)))
+        + f"; a dropout pass {fusion['dropout pass']['ms']:.3f} ms against "
+        f"a fused forward {fusion['fused forward']['ms']:.3f} ms; test_3d "
+        f"engine -tta {tta_windows_per_s:.2f} windows/s; card {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     # the run drives one card, whatever else the machine shows
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,7 @@ from values_tpu_torch.training.experiment import (Experiment, tree_leaves,
                                                   tree_map)
 
 P, B, F, M = 16, 2, 2, 2
-NOT_PORTED = "The MC-dropout, TTA and SSN scorers"
+NOT_PORTED = "Dropout and SSN training"
 
 
 def _cfg(**extra):

@@ -218,23 +218,168 @@ def _with_model_hparams(root, src, dst, **model):
     return str(dst)
 
 
-@pytest.mark.parametrize("case", ["ssn", "tta", "n_pred", "devices"])
+@pytest.mark.parametrize("case", ["devices"])
 def test_cli_refuses_what_is_not_ported(toy, tmp_path, case):
-    """``n_pred``: MC dropout, on a model with dropout."""
+    """Data-parallel scoring over several cards waits for the
+    torch.distributed item."""
     root, det, _, _ = toy
-    ckpts, extra = det, []
-    if case == "ssn":
-        ckpts = [_with_model_hparams(
-            root, det[0], tmp_path / "ssn.ckpt",
-            _target_="values_tpu.models.ssn_unet3d.SsnUNet3D")]
+    with pytest.raises(NotImplementedError, match="torch.distributed"):
+        run_score(_port_args(root, det, tmp_path / "s.json", "--devices",
+                             "2"))
+
+
+# -- the MC-dropout, TTA and SSN branches ----------------------------------------
+
+SSN_MODEL = {"_target_": "values_tpu.models.ssn_unet3d.SsnUNet3D",
+             "num_classes": 2, "in_channels": 1, "initial_filter_size": F,
+             "kernel_size": 3, "do_instancenorm": True, "rank": 3,
+             "epsilon": 1e-5}
+
+# JAX package factory -> the port's
+FACTORIES = {"make_packed_scorer": "make_scorer",
+             "make_packed_aleatoric_scorer": "make_aleatoric_scorer",
+             "make_packed_tta_scorer": "make_tta_scorer",
+             "make_packed_dropout_scorer": "make_dropout_scorer",
+             "make_packed_ssn_scorer": "make_ssn_scorer"}
+# the arguments that pick what a scorer computes
+PICKS = ("n_pred", "n_aleatoric_samples", "do_dropout", "rank", "epsilon")
+
+BRANCHES = {
+    "default": ({}, {}, []),
+    "aleatoric": ({}, {"aleatoric_loss": True, "n_aleatoric_samples": 3},
+                  []),
+    "dropout_one_pass": ({"do_dropout": True}, {}, []),
+    "n_pred_dropout": ({"do_dropout": True}, {}, ["--n_pred", "3"]),
+    "n_pred_plain": ({}, {}, ["--n_pred", "3"]),
+    "tta": ({}, {}, ["-tta"]),
+    "tta_dropout": ({"do_dropout": True}, {}, ["-tta"]),
+    "tta_aleatoric": ({}, {"aleatoric_loss": True}, ["-tta"]),
+    "ssn": (SSN_MODEL, {"n_aleatoric_samples": 4}, []),
+    "ssn_n_pred": (SSN_MODEL, {"n_aleatoric_samples": 4},
+                   ["--n_pred", "2", "-tta"]),
+}
+
+
+def _picked(module, names, monkeypatch):
+    """Replace each scorer factory of ``module`` by a recorder of its
+    name and the arguments in PICKS."""
+    calls = []
+    for name in names:
+        def factory(*args, _name=name, **kw):
+            calls.append((_name, args, {k: kw[k] for k in PICKS
+                                        if k in kw}))
+            return None, None
+        monkeypatch.setattr(module, name, factory)
+    return calls
+
+
+@pytest.mark.parametrize("branch", sorted(BRANCHES))
+def test_cli_picks_the_scorer_the_jax_cli_picks(toy, branch, monkeypatch):
+    """The port's ``build_scorer`` against the JAX CLI's
+    ``_build_scorer`` (score.py:79-124) on the same hparams and flags:
+    the same scorer with the same members, classes, samples, rank and
+    epsilon, or the same ValueError (-tta on an aleatoric head,
+    --n_pred > 1 without dropout)."""
+    from values_tpu.config import instantiate as jax_instantiate
+    from values_tpu.config import make_config as jax_make_config
+    from values_tpu.inference import score as jax_score
+    from values_tpu.inference import scoring as jax_scoring
+    from values_tpu_torch.inference import scoring as port_scoring
+    from values_tpu_torch.inference.score import build_scorer
+    root = toy[0]
+    model, extra_hp, flags = BRANCHES[branch]
+    hp = _hparams(root)
+    hp["model"].update(model)
+    hp.update(extra_hp)
+    argv = ["--checkpoint_paths", "x", "--out", "y"] + flags
+    jax_args, port_args = jax_score_cli(argv), score_cli(argv)
+    want = _picked(jax_scoring, FACTORIES, monkeypatch)
+    got = _picked(port_scoring, FACTORIES.values(), monkeypatch)
+    kw = ({"aleatoric_loss": hp["aleatoric_loss"]}
+          if hp.get("aleatoric_loss") is not None else {})
+    jax_model = jax_instantiate(jax_make_config(dict(hp["model"])), **kw)
+    try:
+        jax_score._build_scorer(hp, jax_model, 2, jax_args, True)
+    except ValueError as err:
+        with pytest.raises(ValueError) as port_err:
+            build_scorer(hp, 2, port_args, "cpu")
+        assert str(port_err.value).split(";")[0] == str(err).split(";")[0]
+        return
+    build_scorer(hp, 2, port_args, "cpu")
+    assert len(want) == len(got) == 1
+    (jname, jargs, jkw), (pname, pargs, pkw) = want[0], got[0]
+    assert FACTORIES[jname] == pname and jargs == pargs and jkw == pkw
+
+
+def _ssn_checkpoints(root, n=2):
+    """n native checkpoints of SsnUNet3D.init variables (f 2, rank 3)."""
+    from values_tpu.models.ssn_unet3d import SsnUNet3D as JaxSsnUNet3D
+    model = JaxSsnUNet3D(num_classes=2, initial_filter_size=F, rank=3)
+    init = jax.jit(model.init)
+    hp = _hparams(root)
+    hp["model"] = dict(SSN_MODEL)
+    hp["n_aleatoric_samples"] = 2
+    paths = []
+    for i, key in enumerate(jax.random.split(jax.random.PRNGKey(8), n)):
+        path = str(root / f"ssn_{i}.ckpt")
+        save_checkpoint(path, init(key, jnp.zeros((1, P, P, P, 1))), hp)
+        paths.append(path)
+    return paths
+
+
+@pytest.mark.parametrize("branch", ["ssn", "tta", "n_pred", "tta_dropout"])
+def test_cli_runs_each_stochastic_branch(toy, tmp_path, branch):
+    """The SSN set (n_pred from the hparams' n_aleatoric_samples), -tta
+    on the softmax set and on a dropout set, --n_pred 2 on the dropout
+    set: the CLI writes what the picked scorer gives for the CLI's batch
+    seed, and the same command writes the same file."""
+    from values_tpu_torch.core.seed import make_generator
+    from values_tpu_torch.inference import scoring as port_scoring
+    from values_tpu_torch.models.torch_import import \
+        group_member_state_dicts
+    root, det, _, _ = toy
+    if branch == "ssn":
+        ckpts, flags = _ssn_checkpoints(tmp_path), []
+    elif branch == "tta":
+        ckpts, flags = det, ["-tta"]
     else:
-        extra = {"tta": ["-tta"], "n_pred": ["--n_pred", "2"],
-                 "devices": ["--devices", "2"]}[case]
-    if case == "n_pred":
-        ckpts = [_with_model_hparams(root, det[0], tmp_path / "mcd.ckpt",
-                                     do_dropout=True)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_score(_port_args(root, ckpts, tmp_path / "s.json", *extra))
+        ckpts = [_with_model_hparams(root, d, tmp_path / f"mcd_{i}.ckpt",
+                                     do_dropout=True)
+                 for i, d in enumerate(det)]
+        flags = ["-tta"] if branch == "tta_dropout" else ["--n_pred", "2"]
+    first, second = tmp_path / "a.json", tmp_path / "b.json"
+    got = run_score(_port_args(root, ckpts, first, *flags))
+    run_score(_port_args(root, ckpts, second, *flags))
+    assert first.read_bytes() == second.read_bytes()
+    assert len(got) == 2
+    loaded = [load_any_checkpoint(p) for p in ckpts]
+    weights = group_member_state_dicts([s for _, s in loaded])
+    common = dict(agg_patch=10, dtype=torch.float32, device="cpu")
+    score = {
+        "ssn": lambda: port_scoring.make_ssn_scorer(2, 2, P, n_pred=2,
+                                                    rank=3, **common),
+        "tta": lambda: port_scoring.make_tta_scorer(2, P, **common),
+        "tta_dropout": lambda: port_scoring.make_tta_scorer(
+            2, P, do_dropout=True, **common),
+        "n_pred": lambda: port_scoring.make_dropout_scorer(2, P, n_pred=2,
+                                                           **common),
+    }[branch]()[0]
+    subjects = sorted(got)
+    pre = root / "Case_1" / "preprocessed"
+    vols = np.stack([np.load(pre / "imagesTr" / f"{s}.npy") for s in
+                     subjects]).astype(np.float32)
+    gt = np.stack([np.stack([np.load(pre / "labelsTr" / f"{s}_{r:02d}.npy")
+                             for r in range(3)]) for s in subjects])
+    seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=make_generator(
+        loaded[0][0]["seed"])))
+    want = score(weights, torch.from_numpy(vols),
+                 torch.from_numpy(gt.astype(np.int32)), seed).numpy()
+    for j, subject in enumerate(subjects):
+        assert list(got[subject]) == score_rows()
+        assert all(np.isfinite(v) for v in got[subject].values())
+        np.testing.assert_array_equal(
+            [got[subject][r] for r in score_rows()], want[:, j],
+            err_msg=subject)
 
 
 def test_cli_n_pred_needs_a_dropout_model(toy, tmp_path):

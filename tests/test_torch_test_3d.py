@@ -6,6 +6,7 @@ import json
 import os
 import random
 
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +27,8 @@ from values_tpu_torch.config import make_config
 from values_tpu_torch.inference import predictors as P
 from values_tpu_torch.inference import test_3d
 from values_tpu_torch.inference.engine import SlidingWindowEngine
+from values_tpu_torch.models import ensemble_unet3d as E
+from values_tpu_torch.models import ssn_unet3d as SSN
 from values_tpu_torch.models.ensemble_unet3d import (cast_weights,
                                                      eval_forward,
                                                      group_member_variables)
@@ -226,14 +229,29 @@ def test_engine_refusals():
         SlidingWindowEngine(model, members, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="backend"):
         SlidingWindowEngine(model, members, backend="tpu", device="cpu")
-    with pytest.raises(NotImplementedError, match="TTA and SSN"):
-        SlidingWindowEngine(model, members, mode="tta", device="cpu")
-    with pytest.raises(NotImplementedError, match="TTA and SSN"):
-        SlidingWindowEngine(model, members, n_pred=2, device="cpu")
+    with pytest.raises(ValueError, match="C1 prediction mode"):
+        SlidingWindowEngine(model, members, mode="mc", device="cpu")
     with pytest.raises(ValueError, match="aleatoric head"):
         SlidingWindowEngine(model, members, mode="aleatoric", device="cpu")
     with pytest.raises(TypeError, match="UNet3D"):
         SlidingWindowEngine(object(), members, device="cpu")
+
+
+def test_engine_passes_without_dropout_match_jax():
+    """``n_pred`` 2 on a model without dropout: each member's pass
+    repeated, member-major, as the JAX engine's vmapped default predictor
+    gives them (f32 at 1e-5)."""
+    members = _members()
+    vol = np.random.RandomState(12).rand(16, 32, 16).astype(np.float32)
+    want = JaxEngine(JaxUNet3D(num_classes=2, initial_filter_size=F),
+                     members, n_pred=2, patch_size=PATCH,
+                     use_grouped_ensemble=True).run_volume(vol)
+    engine = SlidingWindowEngine(UNet3D(2, initial_filter_size=F), members,
+                                 n_pred=2, patch_size=PATCH, device="cpu")
+    assert engine.total_samples == 4
+    for g, w in zip(engine.run_volume(vol), want):
+        if w is not None:
+            _close(g, w)
 
 
 # -- the CLI end to end ------------------------------------------------------
@@ -326,8 +344,13 @@ def test_cli_writes_what_the_jax_cli_writes(cli_runs, dtype, atol):
         common + ["--save_dir", str(root / f"port_{dtype}"), "--device",
                   "cpu", "--dtype", dtype]))
     got = _tree(root / f"port_{dtype}")
-    assert sorted(got) == sorted(want)
     assert len(got) == 2 * 16 + 1   # 16 maps per volume and metrics.json
+    _assert_same_tree(got, want, atol)
+
+
+def _assert_same_tree(got, want, atol):
+    """The same files; every map and metrics.json value within atol."""
+    assert sorted(got) == sorted(want)
     for rel, w in want.items():
         if rel.endswith(".json"):
             assert sorted(got[rel]) == sorted(w)
@@ -341,12 +364,185 @@ def test_cli_writes_what_the_jax_cli_writes(cli_runs, dtype, atol):
             _close(got[rel], w, atol)
 
 
-@pytest.mark.parametrize("extra", [["-tta"], ["--n_pred", "2"],
-                                   ["--sliding_window", "16", "16"]])
+@pytest.mark.parametrize("extra", [["--sliding_window", "16", "16"]])
 def test_cli_refuses_what_is_not_ported(cli_runs, extra):
     root, common, _ = cli_runs
     args = test_3d.test_cli(common + ["--save_dir", str(root / "x"),
                                       "--device", "cpu"] + extra)
-    item = "'2D'" if "--sliding_window" in extra else "TTA and SSN"
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="'2D'"):
         test_3d.run_test(args)
+
+
+# -- the CLI's TTA, MC-dropout and SSN modes -----------------------------------------
+
+class _EngineKeys:
+    """The JAX engine's key of each window chunk (``_next_rng``,
+    engine.py:386-388), in the order the chunks run."""
+
+    def __init__(self, seed):
+        self.rng = jax.random.PRNGKey(seed)
+
+    def __call__(self):
+        self.rng, sub = jax.random.split(self.rng)
+        return sub
+
+
+def _f64(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _tta_replay(seed):
+    """``draw_tta_noise`` as the JAX engine's grouped TTA predictor draws
+    (ensemble_unet3d.py:409-413), in float64."""
+    keys = _EngineKeys(seed)
+
+    def draw(generator, shape, dtype, device):
+        var_key, noise_key = jax.random.split(keys())
+        with jax.enable_x64(True):
+            return (_f64(jax.random.uniform(var_key, (), jnp.float64, 0.0,
+                                            0.1)),
+                    _f64(jax.random.normal(noise_key, shape, jnp.float64)))
+    return draw
+
+
+def _ssn_replay(seed):
+    """``draw_ssn_normals`` as the JAX engine's SSN predictor draws
+    (``LowRankMVN.rsample``), in float64."""
+    keys = _EngineKeys(seed)
+
+    def draw(generator, n, batch, rank, dim, dtype, device):
+        k1, k2 = jax.random.split(keys())
+        with jax.enable_x64(True):
+            return (_f64(jax.random.normal(k1, (n, batch, rank),
+                                           jnp.float64)),
+                    _f64(jax.random.normal(k2, (n, batch, dim),
+                                           jnp.float64)))
+    return draw
+
+
+def _dropout_replay(traces, n_pred=2):
+    """``draw_dropout_masks`` given the masks the JAX engine's flax
+    ``nn.Dropout`` took in each trace (keyed by the chunk's window
+    count): pass j of a chunk gets group j's channels."""
+    calls = {}
+
+    def draw(shapes, generator, device):
+        n = shapes[0][0]
+        j = calls.get(n, 0) % n_pred
+        calls[n] = calls.get(n, 0) + 1
+        out = [torch.from_numpy(np.ascontiguousarray(
+            m[..., j * (m.shape[-1] // n_pred):
+              (j + 1) * (m.shape[-1] // n_pred)])) for m in traces[n]]
+        assert [tuple(t.shape) for t in out] == [tuple(s) for s in shapes]
+        return out
+    return draw
+
+
+def _copy_checkpoint(src, dst, hparams):
+    """A copy of the native checkpoint ``src`` with other hparams."""
+    import pickle
+    with open(src, "rb") as f:
+        payload = pickle.load(f)
+    payload["hyper_parameters"] = hparams
+    with open(dst, "wb") as f:
+        pickle.dump(payload, f)
+    return str(dst)
+
+
+MODE_FLAGS = {"tta": ["-tta"], "n_pred": ["--n_pred", "2"],
+              "ssn": ["--n_pred", "2"]}
+
+
+@pytest.fixture(scope="module")
+def mode_runs(cli_runs):
+    """The JAX CLI in its float64 parity mode over the val split (chunks
+    of 3, 3 and 2 windows) with ``-tta`` on the two members, ``--n_pred
+    2`` on a dropout copy of member 0, and ``--n_pred 2`` on one SSN
+    checkpoint (rank 3); the dropout run's masks recorded per trace."""
+    import pickle
+    from values_tpu.models.ssn_unet3d import SsnUNet3D as JaxSsnUNet3D
+    from values_tpu.training.checkpoint import save_checkpoint
+    root, common, _ = cli_runs
+    members = common[1:3]
+    with open(members[0], "rb") as f:
+        hparams = pickle.load(f)["hyper_parameters"]
+    drop_hp = {**hparams, "model": {**hparams["model"], "do_dropout": True}}
+    ssn_hp = {**hparams, "model": {
+        "_target_": "values_tpu.models.ssn_unet3d.SsnUNet3D",
+        "num_classes": 2, "initial_filter_size": F, "rank": 3,
+        "epsilon": 1e-5}}
+    init = jax.jit(JaxSsnUNet3D(num_classes=2, initial_filter_size=F,
+                                rank=3).init)
+    ssn = [str(root / f"ssn_{i}.ckpt") for i in range(2)]
+    for path, key in zip(ssn, jax.random.split(jax.random.PRNGKey(3))):
+        save_checkpoint(path, init(key, jnp.zeros((1, PATCH, PATCH, PATCH,
+                                                    1))), ssn_hp)
+    ckpts = {"tta": members,
+             "n_pred": [_copy_checkpoint(members[0], root / "mcd.ckpt",
+                                         drop_hp)],
+             "ssn": ssn[:1]}
+    traces = {}
+
+    def dropout(self, inputs, deterministic=None, rng=None):
+        keep = np.random.RandomState(len(traces.get(inputs.shape[0], []))
+                                     ).rand(*inputs.shape) > 0.5
+        traces.setdefault(inputs.shape[0], []).append(keep)
+        return jnp.where(keep, inputs / 0.5, 0.0)
+
+    trees = {}
+    jax.config.update("jax_enable_x64", True)
+    try:
+        for mode, paths in ckpts.items():
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(fnn.Dropout, "__call__", dropout)
+                jax_test_3d.run_test(jax_test_3d.test_cli(
+                    _mode_argv(root, paths, mode, f"jax_{mode}")
+                    + ["--dtype", "float64"]))
+            trees[mode] = _tree(root / f"jax_{mode}")
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    assert sorted(traces) == [2, 3] and all(len(t) == 17
+                                            for t in traces.values())
+    return root, ckpts, ssn, hparams["seed"], traces, trees
+
+
+def _mode_argv(root, paths, mode, out):
+    return (["--checkpoint_paths", *paths, "-i", str(root), "--test_split",
+             "val", "--test_batch_size", "3", "--save_dir", str(root / out)]
+            + MODE_FLAGS[mode])
+
+
+@pytest.mark.parametrize("mode", sorted(MODE_FLAGS))
+def test_cli_modes_write_what_the_jax_cli_writes(mode_runs, monkeypatch,
+                                                 mode):
+    """``-tta`` (16 variants of each of the 2 members), ``--n_pred 2`` on
+    a dropout checkpoint (MC dropout) and a single SSN checkpoint (2
+    samples; the carrier swaps the SSN's aleatoric and epistemic maps),
+    each given the JAX engine's draws: the same tree file for file, every
+    map and metrics.json value within 1e-10 at float64."""
+    root, ckpts, _, seed, traces, trees = mode_runs
+    if mode == "tta":
+        monkeypatch.setattr(E, "draw_tta_noise", _tta_replay(seed))
+    elif mode == "ssn":
+        monkeypatch.setattr(SSN, "draw_ssn_normals", _ssn_replay(seed))
+    else:
+        monkeypatch.setattr(E, "draw_dropout_masks", _dropout_replay(traces))
+    carrier = test_3d.run_test(test_3d.test_cli(
+        _mode_argv(root, ckpts[mode], mode, f"port_{mode}")
+        + ["--dtype", "float64", "--device", "cpu"]))
+    samples = {"tta": 32, "n_pred": 2, "ssn": 2}[mode]
+    for value in carrier.data.values():
+        assert value["softmax_pred"].shape[0] == samples
+    _assert_same_tree(_tree(root / f"port_{mode}"), trees[mode], 1e-10)
+
+
+def test_cli_refuses_an_ssn_ensemble(mode_runs):
+    """Two SSN checkpoints: the JAX CLI takes them into its default mode,
+    whose softmax of a low-rank normal raises TypeError; the port raises
+    ValueError before any forward (ROADMAP.md, Queue 3, R6)."""
+    root, _, ssn, _, _, _ = mode_runs
+    argv = _mode_argv(root, ssn, "ssn", "ens")
+    with pytest.raises(ValueError, match="single SSN checkpoint"):
+        test_3d.run_test(test_3d.test_cli(argv + ["--device", "cpu"]))
+    with pytest.raises(TypeError, match="LowRankMVN"):
+        jax_test_3d.run_test(jax_test_3d.test_cli(argv))

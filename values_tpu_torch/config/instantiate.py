@@ -17,6 +17,7 @@ from typing import Any, Dict
 from .node import Config
 
 _MODEL = "values_tpu_torch.models.unet3d.UNet3D"
+_SSN = "values_tpu_torch.models.ssn_unet3d.SsnUNet3D"
 _TOY = "values_tpu_torch.data.toy_datamodule.ToyDataModule3D"
 _LOGGING = "values_tpu_torch.training.tb_logging"
 _OPTIM = "values_tpu_torch.training.optim"
@@ -25,6 +26,8 @@ _OPTIM = "values_tpu_torch.training.optim"
 TARGET_ALIASES: Dict[str, str] = {
     "uncertainty_modeling.models.unet3D_module.UNet3D": _MODEL,
     "values_tpu.models.unet3d.UNet3D": _MODEL,
+    "uncertainty_modeling.models.ssn_unet3D_module.SsnUNet3D": _SSN,
+    "values_tpu.models.ssn_unet3d.SsnUNet3D": _SSN,
     "uncertainty_modeling.toy_datamodule_3D.ToyDataModule3D": _TOY,
     "values_tpu.data.toy_datamodule.ToyDataModule3D": _TOY,
     "pytorch_lightning.loggers.TensorBoardLogger":
@@ -44,10 +47,6 @@ for _torch_name, _name in (("SGD", "sgd"), ("Adam", "adam"),
 
 # targets whose counterpart is not ported yet -> the ROADMAP.md item
 NOT_PORTED: Dict[str, str] = {
-    "uncertainty_modeling.models.ssn_unet3D_module.SsnUNet3D":
-        "The MC-dropout, TTA and SSN scorers",
-    "values_tpu.models.ssn_unet3d.SsnUNet3D":
-        "The MC-dropout, TTA and SSN scorers",
     "uncertainty_modeling.models.hrnet_module.get_seg_model": "2D",
     "values_tpu.models.hrnet.get_seg_model": "2D",
     "uncertainty_modeling.lidc_idri_datamodule_3D.LidcIdriDataModule3D":

@@ -70,10 +70,12 @@ class VolumeCarrier:
         self.data[image_path] = entry
 
     # -- C2 uncertainty (reference: test_3D.py:486-534) -------------------
-    def compute_uncertainty(self) -> None:
+    def compute_uncertainty(self, ssn: bool = False) -> None:
+        """PE and the aleatoric and epistemic maps of every volume; an
+        SSN swaps the last two (``ops/uncertainty.py``)."""
         for value in self.data.values():
             measures = ops_uncertainty.uncertainty_measures(
-                self._tensor(value["softmax_pred"]))
+                self._tensor(value["softmax_pred"]), ssn=ssn)
             value.update({k: v.cpu().numpy() for k, v in measures.items()})
 
     # -- metrics (reference: test_3D.py:537-575) --------------------------

@@ -2,8 +2,9 @@
 stitching, on the device, one volume at a time.
 
 The port's counterpart of ``values_tpu/inference/engine.py`` (:29-590;
-reference hot loop: test_3D.py:399-483 + data_carrier_3D.py:99-179) for
-the ``default`` and ``aleatoric`` modes. Each volume is staged on the
+reference hot loop: test_3D.py:361-483 + data_carrier_3D.py:99-179) for
+the ``default`` (with MC-dropout passes), ``tta``, ``aleatoric`` and
+``ssn`` modes. Each volume is staged on the
 device once; its windows run in chunks of ``window_batch`` through the
 predictor, and each chunk's stacks are stitched in window order
 (:func:`~values_tpu_torch.ops.window.stitch_windows`) and added to the
@@ -34,6 +35,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..models.ensemble_unet3d import cast_weights, group_member_variables
+from ..models.ssn_unet3d import SsnUNet3D
 from ..models.unet3d import UNet3D
 from ..ops.window import (count_map, enumerate_window_starts,
                           extract_windows, gaussian_weight_map,
@@ -50,15 +52,22 @@ class SlidingWindowEngine:
 
     Args:
         model: the port's :class:`~values_tpu_torch.models.unet3d.UNet3D`
-            built from the checkpoint's config; its head must suit
-            ``mode`` (``aleatoric_loss`` for "aleatoric").
+            or :class:`~values_tpu_torch.models.ssn_unet3d.SsnUNet3D`
+            built from the checkpoint's config; it must suit ``mode``
+            (``aleatoric_loss`` for "aleatoric", the SSN for "ssn" and
+            only for it). Its ``do_dropout`` keeps dropout live in the
+            "default" and "tta" modes, as the reference never switches
+            to eval mode.
         variables_list: M flax-layout member trees (``{"params": ...}``,
             numpy or tensors); M > 1 is a deep ensemble.
-        mode: "default" | "aleatoric".
+        mode: "default" | "tta" | "aleatoric" | "ssn".
+        n_pred: passes per member ("default") or samples per member
+            ("ssn").
         patch_size / patch_overlap: the reference's window stride.
         window_batch: windows per forward; the last chunk is ragged.
         dtype: float32, bfloat16, or float64 (the CPU parity mode).
-        seed: seeds the generator of the aleatoric normals.
+        seed: seeds the generator of every random draw (dropout masks,
+            TTA noise, aleatoric and SSN normals).
         weight_mode: "uniform" (the reference's count average) or
             "gaussian" (a separable Gaussian importance map, sigma =
             patch / 8).
@@ -85,9 +94,13 @@ class SlidingWindowEngine:
             raise ValueError(f"unknown weight_mode {weight_mode!r}")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
-        if type(model) is not UNet3D:
-            raise TypeError(f"the engine runs the port's UNet3D, not "
-                            f"{type(model).__name__}")
+        if type(model) not in (UNet3D, SsnUNet3D):
+            raise TypeError(f"the engine runs the port's UNet3D or "
+                            f"SsnUNet3D, not {type(model).__name__}")
+        if (mode == "ssn") != (type(model) is SsnUNet3D):
+            raise ValueError(f"the {mode!r} mode does not take a "
+                             f"{type(model).__name__}: the SSN runs in the "
+                             "'ssn' mode and only there")
         if (mode == "aleatoric") != bool(getattr(model, "aleatoric_loss",
                                                  False)):
             raise ValueError(f"the {mode!r} mode needs a model "
@@ -115,8 +128,12 @@ class SlidingWindowEngine:
         grouped = to_torch_tree(
             group_member_variables(variables_list)["params"])
         self.stacked_variables = cast_weights(grouped, dtype, self.device)
-        self.predictor = make_predictor(mode, self.n_models, n_pred,
-                                        n_aleatoric_samples)
+        self.predictor = make_predictor(
+            mode, self.n_models, n_pred, n_aleatoric_samples,
+            do_dropout=bool(model.do_dropout),
+            num_classes=model.num_classes,
+            rank=getattr(model, "rank", 10),
+            epsilon=getattr(model, "epsilon", 1e-5))
 
     def _window_weight(self, dtype: torch.dtype) -> Optional[torch.Tensor]:
         """(p, p, p) stitching weight, or None for uniform."""

@@ -10,11 +10,13 @@ deep ensemble), resolves the split's volumes from the first checkpoint's
 ``hyper_parameters``, scores them in batches on the card and writes one
 JSON of ``{subject: {row: value}}`` in :func:`score_rows` order.
 
-The scorer follows the checkpoint: an ``aleatoric_loss`` ensemble goes to
-:func:`~values_tpu_torch.inference.scoring.make_aleatoric_scorer` (K1 +
-K3) with the checkpoint's ``n_aleatoric_samples``, any other UNet3D
-ensemble to :func:`~values_tpu_torch.inference.scoring.make_scorer` (K1
-+ K2). Each batch draws its sampling seed from one ``torch.Generator``
+The scorer follows the checkpoint and the flags, as the JAX CLI picks
+it (:func:`build_scorer`): an SSN ensemble goes to ``make_ssn_scorer``,
+``-tta`` to ``make_tta_scorer``, an ``aleatoric_loss`` ensemble to
+``make_aleatoric_scorer`` (K1 + K3) with the checkpoint's
+``n_aleatoric_samples``, ``--n_pred > 1`` on a dropout model to
+``make_dropout_scorer``, and any other UNet3D ensemble to ``make_scorer``
+(K1 + K2). Each batch draws its sampling seed from one ``torch.Generator``
 seeded with the checkpoint's ``seed``, so the same command writes the
 same JSON. Single-window volumes only; multi-window volumes need the
 sliding-window path.
@@ -38,6 +40,7 @@ from ..core.io import load_json, save_json
 from ..core.seed import make_generator, set_seed
 from ..data.samples import get_val_test_data_samples
 from ..models.ensemble_unet3d import cast_weights
+from ..models.ssn_unet3d import SSN_HEADS, is_ssn_target
 from ..models.torch_import import group_member_state_dicts
 from ..training.checkpoint import load_any_checkpoint
 from . import scoring
@@ -45,8 +48,6 @@ from .test_3d import (dir_and_subjects_from_train,
                       dir_and_subjects_from_train_lidc)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# the ROADMAP.md item that ports the CLI's other scorers
-SCORERS = "The MC-dropout, TTA and SSN scorers"
 
 
 def score_cli(argv=None) -> argparse.Namespace:
@@ -59,9 +60,11 @@ def score_cli(argv=None) -> argparse.Namespace:
     parser.add_argument("--test_split", type=str, default="id")
     parser.add_argument("--n_pred", type=int, default=None,
                         help="stochastic passes (MC dropout) / SSN "
-                        "samples; not ported yet beyond 1")
+                        "samples")
     parser.add_argument("--test_time_augmentations", "-tta", dest="tta",
-                        action="store_true", help="not ported yet")
+                        action="store_true",
+                        help="test-time augmentation: 16 flip/noise "
+                        "variants per member")
     parser.add_argument("--batch_size", type=int, default=32,
                         help="volumes per scorer call")
     parser.add_argument("--agg_patch", type=int, default=10)
@@ -94,11 +97,13 @@ def _not_ported(what: str, item: str):
 def build_scorer(hparams: Dict, members: int, args, device
                  ) -> Tuple[Callable, List[str]]:
     """Pick the scorer for the checkpoint's uncertainty method, as
-    ``values_tpu/inference/score.py::_build_scorer`` (:79-124) does.
-    Returns ``(score(weights, volumes, gt, seed), rows)``. ``--n_pred >
-    1`` on a model without dropout has no scorer in either package and
-    raises ValueError; the scorers not ported yet raise
-    NotImplementedError."""
+    ``values_tpu/inference/score.py::_build_scorer`` (:79-124) does: SSN
+    (``n_pred`` from ``--n_pred``, else the hparams'
+    ``n_aleatoric_samples``), then ``-tta`` (dropout live per variant
+    when the model has it; ValueError on an aleatoric head), then the
+    aleatoric ensemble, then ``--n_pred > 1`` (MC dropout; ValueError
+    without dropout), then the deterministic ensemble. Returns
+    ``(score(weights, volumes, gt, seed), rows)``."""
     patch = hparams["datamodule"]["patch_size"]
     threshold = args.threshold
     if args.threshold_path:
@@ -109,27 +114,34 @@ def build_scorer(hparams: Dict, members: int, args, device
                           for c in ("predictive", "aleatoric", "epistemic"))
     common = dict(agg_patch=args.agg_patch, threshold=threshold,
                   dtype=DTYPES[args.dtype], device=device)
-    target = str(hparams["model"].get("_target_", ""))
+    model = hparams["model"]
     aleatoric = bool(hparams.get("aleatoric_loss"))
-    if "ssn" in target.lower():
-        raise _not_ported("the SSN scorer", SCORERS)
+    do_dropout = bool(model.get("do_dropout", False))
+    if is_ssn_target(model.get("_target_", "")):
+        n_pred = args.n_pred or hparams.get("n_aleatoric_samples", 10)
+        return scoring.make_ssn_scorer(
+            model["num_classes"], members, patch, n_pred=n_pred,
+            rank=model.get("rank", 10), epsilon=model.get("epsilon", 1e-5),
+            **common)
     if args.tta:
         if aleatoric:
             raise ValueError(
                 "TTA on an aleatoric-head checkpoint is not a reference "
                 "C1 family; drop -tta")
-        raise _not_ported("the TTA scorer (-tta)", SCORERS)
+        return scoring.make_tta_scorer(members, patch, do_dropout=do_dropout,
+                                       **common)
     if aleatoric:
         return scoring.make_aleatoric_scorer(
             members, patch,
             n_aleatoric_samples=hparams.get("n_aleatoric_samples", 10),
             **common)
     if args.n_pred and args.n_pred > 1:
-        if not hparams["model"].get("do_dropout", False):
+        if not do_dropout:
             raise ValueError(
                 "--n_pred > 1 needs a dropout model (MC dropout); this "
                 "checkpoint's model has do_dropout=False")
-        raise _not_ported("the MC-dropout scorer (--n_pred > 1)", SCORERS)
+        return scoring.make_dropout_scorer(members, patch,
+                                           n_pred=args.n_pred, **common)
     score, rows = scoring.make_scorer(members, patch, **common)
     return (lambda weights, volumes, gt, seed: score(weights, volumes, gt),
             rows)
@@ -176,8 +188,11 @@ def run_score(args) -> Dict[str, Dict[str, float]]:
     set_seed(seed)
     score, rows = build_scorer(hparams, len(loaded), args, device)
     by_image = _volumes_by_image(hparams, args)
-    weights = cast_weights(group_member_state_dicts([s for _, s in loaded]),
-                           DTYPES[args.dtype], device)
+    grouped = group_member_state_dicts([s for _, s in loaded])
+    weights = cast_weights(grouped, DTYPES[args.dtype], device)
+    # the SSN heads run in float32 whatever the trunk's type
+    weights.update(cast_weights({k: grouped[k] for k in SSN_HEADS
+                                 if k in grouped}, torch.float32, device))
     gen = make_generator(seed)
 
     paths = sorted(by_image)

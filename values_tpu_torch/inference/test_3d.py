@@ -16,9 +16,11 @@ writes the nii.gz maps and ``metrics.json``:
 
 The JAX CLI's arguments, plus ``--device`` (default ``cuda``; without a
 card only ``--device cpu`` runs). ``--dtype float64`` is the CPU parity
-mode. ``-tta``, SSN checkpoints and ``--n_pred > 1`` are ROADMAP.md
-Queue 1's "The MC-dropout, TTA and SSN scorers" and raise
-NotImplementedError; ``--sliding_window`` belongs to the 2D tester.
+mode. The C1 mode follows the checkpoint and the flags
+(:func:`build_engine`): a single SSN checkpoint, ``-tta``, an aleatoric
+head, or the default ensemble (MC dropout with ``--n_pred > 1``).
+``--sliding_window`` belongs to the 2D tester and raises
+NotImplementedError.
 ``--backend`` and ``--no-grouped-ensemble`` are accepted and choose
 nothing: the port has one lowering, the grouped forward on K1.
 """
@@ -35,6 +37,7 @@ from ..core.device import resolve_device
 from ..core.io import load_pickle
 from ..core.seed import set_seed
 from ..data.samples import get_val_test_data_samples
+from ..models.ssn_unet3d import SsnUNet3D
 from ..models.torch_import import unet3d_params_from_torch
 from ..training.checkpoint import load_any_checkpoint
 from .carrier import VolumeCarrier
@@ -55,14 +58,17 @@ def test_cli(argv=None) -> argparse.Namespace:
     parser.add_argument("--test_data_dir", type=str, default=None)
     parser.add_argument("--subject_ids", type=str, nargs="*", default=None)
     parser.add_argument("--n_pred", type=int, default=1,
-                        help="stochastic passes; not ported yet beyond 1")
+                        help="stochastic passes per member (MC dropout) or "
+                        "samples (SSN)")
     parser.add_argument("--n_reference_samples", type=int, default=5)
     parser.add_argument("--test_batch_size", type=int, default=12, nargs="?",
                         help="windows per forward (the last chunk is "
                         "ragged)")
     parser.add_argument("--test_split", type=str, default="id")
     parser.add_argument("--test_time_augmentations", "-tta", dest="tta",
-                        action="store_true", help="not ported yet")
+                        action="store_true",
+                        help="test-time augmentation: 16 flip/noise "
+                        "variants per member")
     parser.add_argument("--no-grouped-ensemble", dest="grouped_ensemble",
                         action="store_false", default=True,
                         help="accepted for the JAX CLI's sake; the port "
@@ -143,21 +149,34 @@ def dir_and_subjects_from_train_lidc(hparams: Dict, args,
 
 
 def build_engine(hparams: Dict, variables_list: List, args, device=None
-                 ) -> SlidingWindowEngine:
-    """The engine of the checkpoint's C1 mode (``default``, or
-    ``aleatoric`` for an aleatoric-head model); SSN checkpoints raise."""
-    target = str(hparams["model"].get("_target_", ""))
-    if "ssn" in target.lower():
-        raise not_ported("the SSN C1 mode")
-    if args.tta:
-        raise not_ported("the TTA C1 mode (-tta)")
+                 ) -> Tuple[SlidingWindowEngine, bool]:
+    """The engine of the checkpoint's C1 mode, chosen as
+    ``values_tpu/inference/test_3d.py::build_engine`` (:123-169) chooses
+    it: ``ssn`` for a single SSN checkpoint, then ``tta`` for ``-tta``,
+    then ``aleatoric`` for an aleatoric-head model, else ``default``
+    (MC-dropout passes with ``--n_pred > 1`` on a dropout model). Returns
+    ``(engine, is_ssn)``. Several SSN checkpoints raise ValueError: the
+    JAX CLI takes them into its ``default`` mode, where the softmax of a
+    low-rank normal fails (ROADMAP.md, Queue 3, R6)."""
     extra = {}
     if hparams.get("aleatoric_loss") is not None:
         extra["aleatoric_loss"] = hparams.get("aleatoric_loss")
     with torch.random.fork_rng(devices=[]):
         model = instantiate(make_config(dict(hparams["model"])), **extra)
-    mode = "aleatoric" if getattr(model, "aleatoric_loss", False) \
-        else "default"
+    is_ssn = isinstance(model, SsnUNet3D)
+    if is_ssn and len(variables_list) > 1:
+        raise ValueError(
+            f"{len(variables_list)} SSN checkpoints: test_3d takes a single "
+            "SSN checkpoint (the JAX CLI fails on an SSN ensemble); score "
+            "an SSN ensemble with values_tpu_torch.inference.score")
+    if is_ssn:
+        mode = "ssn"
+    elif args.tta:
+        mode = "tta"
+    elif getattr(model, "aleatoric_loss", False):
+        mode = "aleatoric"
+    else:
+        mode = "default"
     engine = SlidingWindowEngine(
         model, variables_list, mode=mode, n_pred=args.n_pred,
         n_aleatoric_samples=hparams.get("n_aleatoric_samples", 10),
@@ -171,7 +190,7 @@ def build_engine(hparams: Dict, variables_list: List, args, device=None
         backend=getattr(args, "backend", "auto"),
         shape_bucket=getattr(args, "shape_bucket", None),
         device=device if device is not None else args.device)
-    return engine
+    return engine, is_ssn
 
 
 def save_results(carrier: VolumeCarrier, hparams: Dict, args) -> None:
@@ -205,7 +224,8 @@ def run_test(args) -> VolumeCarrier:
         all_variables.append(unet3d_params_from_torch(state_dict))
     hparams = all_hparams[0]
     set_seed(hparams.get("seed", 123))
-    engine = build_engine(hparams, all_variables, args, device=device)
+    engine, is_ssn = build_engine(hparams, all_variables, args,
+                                  device=device)
 
     is_lidc = "shift_feature" in hparams["datamodule"]
     test_data_dir, subject_ids = args.test_data_dir, args.subject_ids
@@ -225,8 +245,9 @@ def run_test(args) -> VolumeCarrier:
         label_suffix="_mask" if is_lidc else "", flat_dirs=is_lidc)
 
     carrier = engine.run_samples(data_samples)
-    if len(all_variables) > 1 or engine.total_samples > 1:
-        carrier.compute_uncertainty()
+    if (args.n_pred > 1 or len(all_variables) > 1 or args.tta
+            or engine.total_samples > 1):
+        carrier.compute_uncertainty(ssn=is_ssn)
     carrier.compute_metrics()
     save_results(carrier, hparams, args)
     return carrier

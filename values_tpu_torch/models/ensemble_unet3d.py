@@ -46,7 +46,7 @@ chunk of windows (``ensemble_unet3d_pallas.py:706-745``, :823-862).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +54,7 @@ import torch
 from ..ops.kernels.conv3d import (concat_groups, conv3d_fused,
                                   conv3d_fused_train)
 from ..ops.uncertainty import aleatoric_softmax_samples
+from .ssn_unet3d import SSN_HEADS, LowRankMVN, ssn_distribution
 from .torch_import import TRANSPOSED
 
 Maps = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -129,7 +130,8 @@ def head_1x1(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
 
 
 def grouped_forward_fused(weights: Mapping[str, Mapping[str, torch.Tensor]],
-                          x: torch.Tensor, members: int) -> torch.Tensor:
+                          x: torch.Tensor, members: int,
+                          apply_final: bool = True) -> torch.Tensor:
     """The deterministic grouped ensemble forward.
 
     Args:
@@ -138,8 +140,10 @@ def grouped_forward_fused(weights: Mapping[str, Mapping[str, torch.Tensor]],
         x: (B, D, H, W, 1) input, tiled across members, or (B, D, H, W,
             M) with one channel per member. D, H and W divisible by 16.
         members: ensemble size M (the channel-group count).
+        apply_final: False returns the pre-head trunk features (the SSN
+            heads' input).
     Returns logits (B, D, H, W, M, C) in x's dtype (2C channels per
-    member with an aleatoric head).
+    member with an aleatoric head), or the features (B, D, H, W, M, F).
     """
     if x.shape[-1] == 1:
         x = x.expand(*x.shape[:-1], members)
@@ -182,6 +186,8 @@ def grouped_forward_fused(weights: Mapping[str, Mapping[str, torch.Tensor]],
             up_bias = weights[f"upscale{lvl}"]["bias"].reshape(-1)
             up_slope = 1.0  # plain upscales pass through unactivated
 
+    if not apply_final:
+        return e.reshape(*e.shape[:-1], members, -1)
     head = weights.get("final_aleatoric") or weights["final"]
     return head_1x1(e, head["kernel"], head["bias"], members)
 
@@ -206,14 +212,23 @@ def instance_norm_from_stats(x: torch.Tensor,
 
 def grouped_forward_train(weights: Mapping[str, Mapping[str, torch.Tensor]],
                           x: torch.Tensor, members: int,
-                          apply_final: bool = True) -> torch.Tensor:
-    """The differentiable grouped forward, without dropout.
+                          apply_final: bool = True,
+                          keep_masks: Optional[Sequence[torch.Tensor]] = None
+                          ) -> torch.Tensor:
+    """The differentiable grouped forward; with ``keep_masks``, the
+    MC-dropout forward (``grouped_forward_packed(do_dropout=True)``,
+    :498-590, which never takes the fused path either).
 
     Args:
         weights: grouped weights in x's dtype (``{module: {"kernel",
             "bias"}}``, the layout of :func:`grouped_forward_fused`).
         x: (B, D, H, W, 1), tiled across members, or (B, D, H, W, M).
         members: the channel-group count M.
+        keep_masks: None, or the 17 boolean keep masks of one dropout
+            pass in site order (:func:`dropout_site_shapes`); a kept value
+            is doubled, a dropped one is 0 (``_dropout``, :172-175). Each
+            group's channels have their own mask, so the members' draws
+            are independent.
     Returns logits (B, D, H, W, M, C), or the pre-head features (B, D,
     H, W, M, F) with ``apply_final=False``. Norm blocks take their
     statistics from the conv's epilogue; the center and expand convs fuse
@@ -222,6 +237,12 @@ def grouped_forward_train(weights: Mapping[str, Mapping[str, torch.Tensor]],
     if x.shape[-1] == 1:
         x = x.expand(*x.shape[:-1], members)
     x = x.contiguous()
+    masks = None if keep_masks is None else iter(keep_masks)
+
+    def drop(v):
+        if masks is None:
+            return v
+        return torch.where(next(masks), v * 2.0, torch.zeros_like(v))
 
     def block(v, name, norm=True, act="leaky"):
         prm = weights[name]
@@ -234,6 +255,9 @@ def grouped_forward_train(weights: Mapping[str, Mapping[str, torch.Tensor]],
         return (torch.nn.functional.leaky_relu(v, 0.01) if act == "leaky"
                 else torch.relu(v))
 
+    def drop_block(v, name, norm=True):
+        return drop(block(v, name, norm=norm))
+
     def up(v, name):
         prm = weights[name]
         return (transpose_conv_k2s2(v, prm["kernel"])
@@ -242,16 +266,16 @@ def grouped_forward_train(weights: Mapping[str, Mapping[str, torch.Tensor]],
     skips = []
     v = x
     for lvl in (1, 2, 3, 4):
-        v = block(block(v, f"contr_{lvl}_1"), f"contr_{lvl}_2")
+        v = drop_block(drop_block(v, f"contr_{lvl}_1"), f"contr_{lvl}_2")
         skips.append(v)
         v = max_pool_2x(v)
     c = block(v, "center_conv1", norm=False, act="relu")
     c = block(c, "center_conv2", norm=False, act="relu")
-    e = torch.relu(up(c, "center_up"))
+    e = drop(torch.relu(up(c, "center_up")))
     for lvl in (4, 3, 2, 1):
         e = concat_groups(e, skips.pop(), members)
-        e = block(e, f"expand_{lvl}_1", norm=False)
-        e = block(e, f"expand_{lvl}_2", norm=False)
+        e = drop_block(e, f"expand_{lvl}_1", norm=False)
+        e = drop_block(e, f"expand_{lvl}_2", norm=False)
         if lvl > 1:
             e = up(e, f"upscale{lvl}")
     if not apply_final:
@@ -407,4 +431,167 @@ def make_grouped_aleatoric_predictor(members: int,
                           generator=generator, dtype=mu.dtype,
                           device=mu.device)
         return aleatoric_softmax_samples(mu, s, eps)
+    return predict
+
+
+# -- MC dropout, TTA and SSN ---------------------------------------------------
+
+DROPOUT_SITES = 17
+# the 7 flip-axis combinations of test_3D.py:434 on the NDHWC spatial axes
+# 1-3 (values_tpu/inference/predictors.py:35-36)
+FLIP_COMBOS: Tuple[Tuple[int, ...], ...] = ((1,), (2,), (3,), (1, 2),
+                                            (1, 3), (2, 3), (1, 2, 3))
+
+
+def draw_dropout_masks(shapes: Sequence[Tuple[int, ...]],
+                       generator: Optional[torch.Generator], device
+                       ) -> List[torch.Tensor]:
+    """The keep masks of one dropout pass, one boolean tensor per shape,
+    each value kept with probability 0.5."""
+    return [torch.empty(shape, dtype=torch.bool, device=device).bernoulli_(
+        0.5, generator=generator) for shape in shapes]
+
+
+def draw_tta_noise(generator: Optional[torch.Generator],
+                   shape: Tuple[int, ...], dtype: torch.dtype, device
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """TTA's noise draw for one input: ``variance`` ~ U(0, 0.1), a
+    0-dimensional tensor, and a standard normal field of ``shape``. The
+    noisy input is ``x + noise * variance``: batchgenerators draws a
+    variance and passes it as the normal's scale
+    (``values_tpu/inference/predictors.py:92-95``)."""
+    variance = torch.rand((), generator=generator, dtype=dtype,
+                          device=device) * 0.1
+    noise = torch.randn(shape, generator=generator, dtype=dtype,
+                        device=device)
+    return variance, noise
+
+
+def dropout_site_shapes(weights: Mapping[str, Mapping[str, torch.Tensor]],
+                        x_shape: Tuple[int, ...]) -> List[Tuple[int, ...]]:
+    """The NDHWC shapes of the 17 dropout sites of a grouped forward of
+    an input of ``x_shape`` (B, D, H, W, ·), in the order the forward
+    drops out: the 8 contract blocks, the center, the 8 expand blocks."""
+    b, d, h, w = x_shape[:4]
+
+    def at(lvl, name):
+        k = 2 ** (lvl - 1)
+        return (b, d // k, h // k, w // k, weights[name]["kernel"].shape[-1])
+
+    shapes = [at(lvl, f"contr_{lvl}_{i}") for lvl in (1, 2, 3, 4)
+              for i in (1, 2)]
+    up = weights["center_up"]["kernel"]
+    shapes.append((b, d // 8, h // 8, w // 8, up.shape[0] * up.shape[-1]))
+    shapes += [at(lvl, f"expand_{lvl}_{i}") for lvl in (4, 3, 2, 1)
+               for i in (1, 2)]
+    return shapes
+
+
+def dropout_forward(weights: Mapping[str, Mapping[str, torch.Tensor]],
+                    x: torch.Tensor, members: int,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One MC-dropout pass of the grouped ensemble, for serving: draws
+    the pass's 17 keep masks (:func:`draw_dropout_masks`) and runs
+    :func:`grouped_forward_train` with them under inference mode. Every
+    norm conv is K1 with its statistics and no prologue, every other 3x3x3
+    conv K1 with its epilogue activation: 18 launches. Returns logits
+    (B, D, H, W, M, C) in x's dtype."""
+    masks = draw_dropout_masks(dropout_site_shapes(weights, tuple(x.shape)),
+                               generator, x.device)
+    with torch.inference_mode():
+        return grouped_forward_train(weights, x, members, keep_masks=masks)
+
+
+def tta_inputs(x: torch.Tensor, generator: Optional[torch.Generator]):
+    """The 16 TTA variants of x (B, D, H, W, 1) in the reference order
+    ``[clean, clean flips..., noisy, noisy flips...]``
+    (test_3D.py:427-456), each with the axes to un-flip its output
+    along: a generator of ``(input, axes)``. The noise is drawn (in x's
+    type) before the first variant."""
+    variance, noise = draw_tta_noise(generator, tuple(x.shape), x.dtype,
+                                     x.device)
+    x_noise = x + noise * variance
+    for base in (x, x_noise):
+        for axes in ((),) + FLIP_COMBOS:
+            yield (torch.flip(base, axes) if axes else base), axes
+
+
+def member_heads(weights: Mapping[str, Mapping[str, torch.Tensor]],
+                 member: int, members: int, dtype: torch.dtype):
+    """Member ``member``'s SSN heads from the grouped weights: ``{name:
+    (kernel (F, cout), bias (cout,))}`` in ``dtype``."""
+    out = {}
+    for name in SSN_HEADS:
+        kernel, bias = weights[name]["kernel"], weights[name]["bias"]
+        f = kernel.shape[3]
+        out[name] = (kernel.reshape(f, members, -1)[:, member].to(dtype),
+                     bias.reshape(members, -1)[member].to(dtype))
+    return out
+
+
+def make_grouped_dropout_predictor(members: int, n_pred: int,
+                                   do_dropout: bool = True):
+    """``predict(weights, x, generator)`` -> ((M*n_pred, B, D, H, W, C)
+    softmax stack, None), member-major then pass, as the JAX package
+    orders its samples (``predictors.py:56-75``): ``n_pred`` dropout
+    passes at G = M (:func:`dropout_forward`), each drawing its own
+    masks. Without ``do_dropout`` the passes are one deterministic
+    forward repeated, as the JAX predictor's are."""
+    def predict(weights, x, generator=None):
+        if not do_dropout:
+            probs, _ = make_grouped_ensemble_predictor(members)(weights, x)
+            return probs.repeat_interleave(n_pred, dim=0), None
+        passes = [torch.softmax(dropout_forward(weights, x, members,
+                                                generator)
+                                .to(stack_dtype(x.dtype)), dim=-1)
+                  for _ in range(n_pred)]
+        probs = torch.stack(passes, dim=-2)       # (B, .., M, n_pred, C)
+        return probs.flatten(-3, -2).movedim(-2, 0), None
+    return predict
+
+
+def make_grouped_tta_predictor(members: int, do_dropout: bool = False):
+    """``predict(weights, x, generator)`` -> ((M*16, B, D, H, W, C)
+    softmax stack, None), member-major then variant
+    (``values_tpu/models/ensemble_unet3d.py:389-435``): the 16 variants of
+    :func:`tta_inputs` run as 16 forwards at G = M (the fused forward, or
+    a dropout pass with its own masks when the model has dropout, which
+    stays live per variant), each output un-flipped."""
+    def predict(weights, x, generator=None):
+        outs = []
+        for xv, axes in tta_inputs(x, generator):
+            logits = (dropout_forward(weights, xv, members, generator)
+                      if do_dropout
+                      else grouped_forward_fused(weights, xv, members))
+            p = torch.softmax(logits.to(stack_dtype(x.dtype)), dim=-1)
+            outs.append(torch.flip(p, axes) if axes else p)
+        probs = torch.stack(outs, dim=-2)         # (B, .., M, 16, C)
+        return probs.flatten(-3, -2).movedim(-2, 0), None
+    return predict
+
+
+def make_grouped_ssn_predictor(members: int, num_classes: int, n_pred: int,
+                               rank: int = 10, epsilon: float = 1e-5):
+    """``predict(weights, x, generator)`` -> ((M*n_pred, B, D, H, W, C)
+    softmax stack, None), member-major (``values_tpu/models/
+    ensemble_unet3d.py:324-386``): one grouped trunk forward, each
+    member's three 1x1x1 heads in the stacks' type, one low-rank normal
+    over a batch of M*B (member-major) and ``n_pred`` samples of it drawn
+    at once."""
+    def predict(weights, x, generator=None):
+        dtype = stack_dtype(x.dtype)
+        feats = grouped_forward_fused(weights, x, members, apply_final=False)
+        dists = [ssn_distribution(feats[..., m, :].to(dtype),
+                                  member_heads(weights, m, members, dtype),
+                                  num_classes, rank, epsilon)
+                 for m in range(members)]
+        dist = LowRankMVN(*(torch.cat(t) for t in zip(
+            *((d.mean, d.cov_diag, d.cov_factor) for d in dists))))
+        samples = dist.rsample(generator, n_pred)   # (S, M*B, C*V)
+        b, spatial = x.shape[0], tuple(x.shape[1:4])
+        logits = samples.reshape((n_pred, members, b, num_classes)
+                                 + spatial).transpose(0, 1)
+        logits = logits.reshape((members * n_pred, b, num_classes)
+                                + spatial).movedim(2, -1)
+        return torch.softmax(logits, dim=-1), None
     return predict

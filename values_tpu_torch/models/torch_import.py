@@ -32,7 +32,8 @@ TRANSPOSED = ("center_up", "upscale4", "upscale3", "upscale2")
 
 _BLOCK_RE = re.compile(r"^(contr_\d_\d|expand_\d_\d)\.0\.(weight|bias)$")
 _CENTER_RE = re.compile(r"^center\.(\d)\.(weight|bias)$")
-_PLAIN_RE = re.compile(r"^(final|final_aleatoric|upscale\d)\.(weight|bias)$")
+_PLAIN_RE = re.compile(r"^(final|final_aleatoric|mean_conv|log_cov_diag_conv|"
+                       r"cov_factor_conv|upscale\d)\.(weight|bias)$")
 
 
 def strip_model_prefix(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
@@ -79,8 +80,9 @@ def unet3d_params_to_torch(variables: Mapping[str, Any]
     """flax UNet3D variables (nested dicts of numpy arrays) -> a
     reference-layout state_dict with ``model.``-prefixed keys. Heads the
     reference constructs but flax never materializes (``final`` beside
-    ``final_aleatoric``, ``output_reconstruction_map``) are filled with
-    zeros so a strict ``load_state_dict`` succeeds."""
+    ``final_aleatoric``; the SSN's unused ``final``, sized ``C*2 + C*R``;
+    ``output_reconstruction_map``) are filled with zeros so a strict
+    ``load_state_dict`` succeeds."""
     params = variables["params"] if "params" in variables else variables
     reverse_center = {v: k for k, v in _CENTER_MAP.items()}
     state: Dict[str, torch.Tensor] = {}
@@ -106,6 +108,11 @@ def unet3d_params_to_torch(variables: Mapping[str, Any]
         c = np.asarray(params["final_aleatoric"]["kernel"]).shape[-1] // 2
         state["model.final.weight"] = torch.zeros(c, f, 1, 1, 1)
         state["model.final.bias"] = torch.zeros(c)
+    if "mean_conv" in params and "model.final.weight" not in state:
+        c = np.asarray(params["mean_conv"]["kernel"]).shape[-1]
+        cr = np.asarray(params["cov_factor_conv"]["kernel"]).shape[-1]
+        state["model.final.weight"] = torch.zeros(2 * c + cr, f, 1, 1, 1)
+        state["model.final.bias"] = torch.zeros(2 * c + cr)
     if "model.output_reconstruction_map.weight" not in state:
         state["model.output_reconstruction_map.weight"] = torch.zeros(
             1, f, 1, 1, 1)
@@ -115,7 +122,8 @@ def unet3d_params_to_torch(variables: Mapping[str, Any]
 
 def require_unet3d(hparams: Any, path: str) -> None:
     """Raise ``NotImplementedError`` for a checkpoint whose model target
-    is not of the UNet3D family: the port reads only those so far."""
+    is not of the UNet3D family (plain, aleatoric, dropout or SSN): the
+    port reads only those so far."""
     try:
         target = str(hparams["model"].get("_target_", ""))
     except (KeyError, AttributeError, TypeError):

@@ -12,14 +12,22 @@ InstanceNorm (eps 1e-5) -> LeakyReLU(0.01) blocks, 2x2x2 max-pool between
 levels; center Conv -> ReLU -> Conv -> ReLU -> ConvTranspose(2, 2) ->
 ReLU; decoder center-crop skip concat, two Conv -> LeakyReLU blocks (no
 norm) and a ConvTranspose up per level; 1x1x1 ``final`` head, or
-``final_aleatoric`` emitting (mu, s). The MC-dropout variant is not
-ported yet and raises. Input and output are channels-last NDHWC, as in
-the JAX package. ``kernel_size`` and ``do_dropout`` are the config's
-keys; only 3 and False are taken.
+``final_aleatoric`` emitting (mu, s). Input and output are
+channels-last NDHWC, as in the JAX package. ``kernel_size`` is the
+config's key; only 3 is taken.
+
+MC dropout (``do_dropout``): ``Dropout(0.5)`` at the reference's 17
+sites (``values_tpu/models/unet3d.py:87-107``, :138-160): after each of
+the 8 contract and 8 expand blocks (after the norm and the activation,
+so the skip and the pool see the dropped tensor) and after the center's
+up-conv and ReLU; never after ``center_conv1``/``center_conv2`` or the
+upscales. ``forward(..., keep_masks=...)`` takes the 17 boolean keep
+masks (NDHWC, in site order) instead of drawing them: a kept value is
+doubled, a dropped one is 0, as the JAX package's ``_dropout`` computes.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -59,13 +67,12 @@ class UNet3D(nn.Module):
         if kernel_size != 3:
             raise ValueError(f"kernel_size={kernel_size}: the UNet3D and "
                              "its kernels are 3x3x3")
-        if do_dropout:
-            raise NotImplementedError(
-                "the MC-dropout UNet3D is not ported yet (ROADMAP.md, "
-                "Queue 1: 'The MC-dropout, TTA and SSN scorers')")
         f = initial_filter_size
         norm = do_instancenorm
+        self.num_classes = num_classes
         self.aleatoric_loss = aleatoric_loss
+        self.do_dropout = do_dropout
+        self.dropout = nn.Dropout(0.5)
         self.contr_1_1 = _contract(in_channels, f, norm)
         self.contr_1_2 = _contract(f, f, norm)
         self.contr_2_1 = _contract(f, 2 * f, norm)
@@ -95,27 +102,50 @@ class UNet3D(nn.Module):
         self.output_reconstruction_map = nn.Conv3d(f, 1, 1)
 
     def forward(self, x: torch.Tensor, enable_concat: bool = True,
-                last_layer: bool = True):
+                last_layer: bool = True,
+                keep_masks: Optional[Sequence[torch.Tensor]] = None):
         """x (B, D, H, W, Cin) -> logits (B, D, H, W, C), or (mu, s) with
         the aleatoric head, or the pre-head features with
-        ``last_layer=False``."""
+        ``last_layer=False``. With ``do_dropout``, ``keep_masks`` (17
+        boolean NDHWC tensors in site order) replaces the module's own
+        draws; without either, dropout follows ``self.training``."""
         weight = 1.0 if enable_concat else 0.0
         x = x.permute(0, 4, 1, 2, 3)
+        masks: Optional[Iterator[torch.Tensor]] = (
+            None if keep_masks is None else iter(keep_masks))
+
+        def drop(t):
+            if not self.do_dropout:
+                return t
+            if masks is None:
+                return self.dropout(t)
+            keep = next(masks).permute(0, 4, 1, 2, 3)
+            return torch.where(keep, t * 2.0, torch.zeros_like(t))
+
+        def block(seq, t):
+            return drop(seq(t))
 
         def skip(enc, dec):
             crop = center_crop(enc, dec.shape[2:])
             return torch.cat([dec, crop * weight], dim=1)
 
-        contr_1 = self.contr_1_2(self.contr_1_1(x))
-        contr_2 = self.contr_2_2(self.contr_2_1(F.max_pool3d(contr_1, 2)))
-        contr_3 = self.contr_3_2(self.contr_3_1(F.max_pool3d(contr_2, 2)))
-        contr_4 = self.contr_4_2(self.contr_4_1(F.max_pool3d(contr_3, 2)))
-        center = self.center(F.max_pool3d(contr_4, 2))
+        contr_1 = block(self.contr_1_2, block(self.contr_1_1, x))
+        contr_2 = block(self.contr_2_2,
+                        block(self.contr_2_1, F.max_pool3d(contr_1, 2)))
+        contr_3 = block(self.contr_3_2,
+                        block(self.contr_3_1, F.max_pool3d(contr_2, 2)))
+        contr_4 = block(self.contr_4_2,
+                        block(self.contr_4_1, F.max_pool3d(contr_3, 2)))
+        center = block(self.center, F.max_pool3d(contr_4, 2))
 
-        e = self.expand_4_2(self.expand_4_1(skip(contr_4, center)))
-        e = self.expand_3_2(self.expand_3_1(skip(contr_3, self.upscale4(e))))
-        e = self.expand_2_2(self.expand_2_1(skip(contr_2, self.upscale3(e))))
-        e = self.expand_1_2(self.expand_1_1(skip(contr_1, self.upscale2(e))))
+        e = block(self.expand_4_2,
+                  block(self.expand_4_1, skip(contr_4, center)))
+        e = block(self.expand_3_2,
+                  block(self.expand_3_1, skip(contr_3, self.upscale4(e))))
+        e = block(self.expand_2_2,
+                  block(self.expand_2_1, skip(contr_2, self.upscale3(e))))
+        e = block(self.expand_1_2,
+                  block(self.expand_1_1, skip(contr_1, self.upscale2(e))))
 
         def ndhwc(t):
             return t.permute(0, 2, 3, 4, 1)

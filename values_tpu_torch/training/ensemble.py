@@ -63,8 +63,8 @@ class EnsembleTrainer:
     model outside the UNet3D family (SSN and 2D models train per member
     through ``Experiment``) and ``gradient_clip_val`` (the global norm
     would couple the members); a dropout model raises
-    NotImplementedError (ROADMAP.md Queue 1, "The MC-dropout, TTA and SSN
-    scorers").
+    NotImplementedError (ROADMAP.md Queue 1, "Dropout and SSN
+    training").
     """
 
     def __init__(self, cfg: Config, members: int, device=None):

@@ -19,7 +19,8 @@ package's tree, so checkpoints carry it unchanged); ``precision=bf16``
 casts them and the batch to bfloat16 for the forward and backward, and
 the optimizer updates the float32 leaves (``experiment.py:64-68``).
 Refused with ``NotImplementedError``: dropout and SSN models (ROADMAP.md
-Queue 1, "The MC-dropout, TTA and SSN scorers") and 2D models ("2D").
+Queue 1, "Dropout and SSN training"; both serve through the inference
+paths) and 2D models ("2D").
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from ..config import Config, instantiate
 from ..core.device import resolve_device
 from ..models.ensemble_unet3d import (PATCH_MULTIPLE, eval_forward,
                                       train_forward)
+from ..models.ssn_unet3d import SsnUNet3D
 from ..models.torch_import import unet3d_params_from_torch
 from ..ops import losses as L
 from ..ops import metrics as M
@@ -91,11 +93,18 @@ class Experiment:
         if cfg.get("aleatoric_loss") is not None:
             model_kwargs["aleatoric_loss"] = cfg.get("aleatoric_loss")
         # the model is built (and its config checked: dropout, SSN and 2D
-        # targets raise) only under a seeded RNG, in init_state
+        # targets raise) under a forked RNG here, and seeded in init_state
         self._build_model = functools.partial(instantiate, cfg.model,
                                               **model_kwargs)
         with torch.random.fork_rng(devices=[]):
-            self.num_classes = self._build_model().final.out_channels
+            model = self._build_model()
+        if isinstance(model, SsnUNet3D) or model.do_dropout:
+            raise NotImplementedError(
+                "training a dropout or SSN model is not ported to "
+                "values_tpu_torch yet (ROADMAP.md, Queue 1: 'Dropout and SSN "
+                "training'); their checkpoints serve through the score and "
+                "test_3d CLIs")
+        self.num_classes = model.final.out_channels
         self.optimizer = self._build_optimizer()
         self.lr_schedule = self._build_lr_schedule()
 
