@@ -77,10 +77,27 @@ Phases, each of which raises on failure:
    the members of 8c, ``--n_pred 4`` on a dropout checkpoint and on one
    SSN checkpoint, each tree checked file by file and its launches
    counted; the engine's windows/s under ``-tta``;
+8k. dropout and SSN training at the published widths of
+   ``dropout_config`` and ``ssn_config`` over a Case_1 made by the
+   port's toy generator (24 + 2 volumes of 64^3): the training CLI on
+   each at f32 and bf16 (the SSN 2 epochs, the first pretraining), 35 K1
+   launches a step (17 of them K1b's dx) and 18 a validation forward
+   counted; the f32 first dropout step and the first SSN pretraining and
+   sampling steps against the plain path given the same masks and
+   normals; the unused SSN factor head moved by Adam as optax moves it;
+   joint MC-dropout training at G = 5 (3 steps at f32 and bf16, the
+   first f32 step against 5 Experiment steps given the same masks); the
+   trained dropout and SSN checkpoints through the score CLI;
+   ``softmax_config_lidc`` for one epoch on a synthetic LIDC tree (the
+   datamodule makes its own splits from id_ood.csv) and ``augment=True``
+   for one epoch on Case_1; each step timed (median and spread), its
+   peak memory and one profiled step (device time, idle share, top
+   device ops). It runs last; its launches join the kernels line;
 9. time each kernel at its path's shape beside its bound, its plain
    version and a library yardstick (K3: the stock-torch sampling loop,
    and its SFU floor, computed at the card's maximum SM clock; K2: both
-   forms; K1b: cuDNN's input gradient), time and profile a training
+   forms; K1b: cuDNN's input gradient, and its device time under the
+   profiler), time and profile a training
    step, time K1's f32 regime at the test_3d chunk's largest conv, time
    K1 at each of the 18 convs (with its regime) and its shallow and
    tile16 kernels against each other where plan() chooses between them,
@@ -1097,36 +1114,38 @@ def write_case1(root: str) -> None:
 
 
 def training_overrides(root: str, version: str) -> list:
-    """softmax_config at its published widths; one epoch on the toy set."""
+    """A config at its published widths; one epoch over ``root``."""
     return [f"data_input_dir={root}", f"save_dir={root}/exp",
             f"version={version}", "max_epochs=1"]
 
 
-def run_training_cli(root: str, version: str, extra: list, card: str):
-    """The training CLI's ``main`` once, its launches counted and its
-    epoch line parsed; returns (checkpoint, seconds, launches, losses)."""
+def run_config_cli(name: str, root: str, version: str, extra: list,
+                   card: str):
+    """The training CLI on config ``name`` over ``root`` (one epoch unless
+    ``extra`` says otherwise), its launches counted and its epoch lines
+    parsed; returns (checkpoint, seconds, launches, [per-epoch losses])."""
     import io
     from values_tpu_torch.training.main import main as train_main
     out = io.StringIO()
     reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        ckpt = train_main(["--device", "cuda"]
+        ckpt = train_main(["--config-name", name, "--device", "cuda"]
                           + training_overrides(root, version) + extra)
     seconds = time.perf_counter() - t0
     launches = read_launches()
-    text = out.getvalue()
-    epoch_line = [line for line in text.splitlines()
-                  if line.startswith("epoch 0:")][0]
-    losses = {k: float(v) for k, v in
-              (item.split("=") for item in epoch_line.split()[2:5])}
-    log(f"training CLI {version}: {epoch_line}; {seconds:.2f} s "
-        f"(data preparation on the first run included); launches "
-        f"{json.dumps(launches)}; card {card}")
-    if not os.path.exists(ckpt) or not all(np.isfinite(v)
-                                           for v in losses.values()):
-        raise AssertionError(f"training CLI {version}: checkpoint {ckpt} "
-                             f"or losses {losses} missing or not finite")
+    lines = [line for line in out.getvalue().splitlines()
+             if line.startswith("epoch ")]
+    losses = [{k: float(v) for k, v in (item.split("=") for item in
+                                        line.split()[2:5])}
+              for line in lines]
+    log(f"training CLI {name} {version}: " + " | ".join(lines)
+        + f"; {seconds:.2f} s; launches {json.dumps(launches)}; card {card}")
+    if not os.path.exists(ckpt) or not losses or not all(
+            np.isfinite(v) for epoch in losses for v in epoch.values()):
+        raise AssertionError(f"training CLI {name} {version}: checkpoint "
+                             f"{ckpt} or losses {losses} missing or not "
+                             "finite")
     return ckpt, seconds, launches, losses
 
 
@@ -1202,7 +1221,8 @@ def training_path(card: str):
     write_case1(root)
     runs = {}
     for version, extra in (("f32", []), ("bf16", ["+precision=bf16"])):
-        runs[version] = run_training_cli(root, version, extra, card)
+        runs[version] = run_config_cli("softmax_config", root, version,
+                                       extra, card)
     with open(os.path.join(root, "Case_1", "splits.pkl"), "rb") as f:
         fold = pkl.load(f)[0]
     steps = -(-len(fold["train"]) // TRAIN_BATCH)
@@ -1266,14 +1286,17 @@ def _grouped_tree(names, leaves):
     return tree
 
 
-def joint_step_against_experiments(trainer, state, batch, cfg, card: str):
+def joint_step_against_experiments(trainer, state, batch, cfg, card: str,
+                                   generators=None):
     """The first f32 joint step against N_MEMBERS independent port
     Experiments (each on its member's initial weights and stream, K1 and
     K1b at G = 1): each member's loss within rtol 2e-4, and its gradient,
     split off the joint one, within the limits of the first training
     step's check (``first_step_against_plain``): 1e-3 of the norm over
     all leaves and 1e-2 of each leaf's, the biases of the convs feeding an
-    instance norm aside (their true gradient is 0)."""
+    instance norm aside (their true gradient is 0). ``generators``: a
+    function giving fresh, equally seeded per-member generators, so both
+    sides draw the same dropout masks."""
     import torch
     from values_tpu_torch.models.ensemble_unet3d import \
         ungroup_member_variables
@@ -1281,7 +1304,8 @@ def joint_step_against_experiments(trainer, state, batch, cfg, card: str):
     names = [(m, k) for m in sorted(state.params)
              for k in sorted(state.params[m])]
     leaves = tree_leaves(state.params)
-    losses = trainer.loss(state.params, batch)
+    losses = trainer.loss(state.params, batch,
+                          generators() if generators else None)
     grads = torch.autograd.grad(losses.sum(), leaves)
     losses = losses.detach()
     split = ungroup_member_variables(
@@ -1293,7 +1317,8 @@ def joint_step_against_experiments(trainer, state, batch, cfg, card: str):
         exp = Experiment(cfg, "cuda")
         est = exp.state_from_variables(initial[m])
         loss = exp.loss(est.params, {"data": batch["data"][m],
-                                     "seg": batch["seg"][m]})
+                                     "seg": batch["seg"][m]},
+                        generators()[m] if generators else None)
         want = torch.autograd.grad(loss, tree_leaves(est.params))
         want_names = [f"{mod}/{k}" for mod in sorted(est.params)
                       for k in sorted(est.params[mod].get(
@@ -2250,6 +2275,475 @@ def test3d_modes_path(joint_ckpts, train_root: str, card: str):
     return out, rate
 
 
+# -- dropout and SSN training, the LIDC datamodule, augmentation ---------------
+
+# Case_1 made by the port's generator at its published options and 64^3,
+# cut from 200 training and 20 test volumes to these counts
+GEN_TRAIN, GEN_TEST = 24, 2
+# the synthetic LIDC tree: patients x nodules, 64^3 crops, 4 raters;
+# the first LIDC_ID_PATIENTS patients' textures read ID
+LIDC_PATIENTS, LIDC_NODULES, LIDC_ID_PATIENTS = 30, 2, 24
+SSN_EPOCHS = ["max_epochs=2", "pretrain_epochs=1"]
+
+
+def generate_case1(root: str) -> float:
+    """``Case_1`` under ``root`` by ``values_tpu_torch.data.
+    toy_generation`` (its benchmark options, GEN_TRAIN + GEN_TEST
+    volumes); returns the seconds it took."""
+    from values_tpu_torch.data import toy_generation as tg
+    t0 = time.perf_counter()
+    case = {split: [dict(cfg, n_samples=n) for cfg in
+                    tg.BENCHMARK_CASES["Case_1"][split]]
+            for split, n in (("train", GEN_TRAIN), ("test", GEN_TEST))}
+    saved = tg.BENCHMARK_CASES["Case_1"]
+    tg.BENCHMARK_CASES["Case_1"] = case
+    try:
+        tg.main(["--base_save_path", root, "--dataset_name", "Case_1"])
+    finally:
+        tg.BENCHMARK_CASES["Case_1"] = saved
+    return time.perf_counter() - t0
+
+
+def training_launches(root: str, epochs: int) -> dict:
+    """The launches of ``epochs`` epochs on the Case_1 fold: 35 K1 a step
+    (17 of them K1b's dx), 18 a validation forward and 18 for the panel."""
+    with open(os.path.join(root, "Case_1", "splits.pkl"), "rb") as f:
+        fold = pickle.load(f)[0]
+    steps = -(-len(fold["train"]) // TRAIN_BATCH)
+    n_val = len(fold["val"])
+    return {"conv3d_fused": epochs * ((K1_FORWARD + K1_DX) * steps
+                                      + K1_FORWARD * (n_val + 1)),
+            "conv3d_fused_train": epochs * K1_DX * steps,
+            "fused_entropy": 0, "sampled_softmax_stats": 0}
+
+
+# The bottleneck's leaves (center_conv1, center_conv2, center_up) get a
+# per-leaf limit of 3e-2 in the dropout and SSN first-step checks, the
+# other leaves first_step_against_plain's 1e-2: their f32 gradients
+# cancel heavily, and K1's f32 regime sums each output's 27 * Cin
+# products (1,728-3,456 there) in one f32 chain, so on a dropout step the
+# kernel path's error there reaches about 1e-2. The dropout check logs
+# both f32 paths against the float64 plain path to show it; a wrong
+# gradient is off by order 1.
+BOTTLENECK_LEAF_LIMIT = 3e-2
+
+
+def step_against_plain(exp, state, batch, seed: int, pretrain: bool,
+                       what: str, card: str, float64: bool = False) -> None:
+    """One f32 step's loss and every parameter gradient through the
+    kernels and through the plain versions (K1b's plain version in every
+    conv), each side drawing its masks and normals from a card generator
+    seeded with ``seed``: the limits of ``first_step_against_plain``,
+    the bottleneck's leaves at BOTTLENECK_LEAF_LIMIT. ``float64``: also
+    log each side's error at the bottleneck against the plain path in
+    float64 (the same masks; not for the SSN, whose normals a float64
+    run draws anew)."""
+    import torch
+    from values_tpu_torch.models import ensemble_unet3d as ens
+    from values_tpu_torch.training.experiment import tree_leaves, tree_map
+    names = [f"{m}/{k}" for m in sorted(state.params)
+             for k in sorted(state.params[m].get("conv", state.params[m]))]
+
+    def loss_and_grads(params, data):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        leaves = tree_leaves(params)
+        loss = exp.loss(params, dict(batch, data=data), gen, pretrain)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.item(), [torch.zeros_like(t) if g is None else g
+                             for t, g in zip(leaves, grads)]
+
+    got_loss, got = loss_and_grads(state.params, batch["data"])
+    real = ens.conv3d_fused_train
+    ens.conv3d_fused_train = plain_train_conv
+    try:
+        want_loss, want = loss_and_grads(state.params, batch["data"])
+        if float64:
+            _, exact = loss_and_grads(
+                tree_map(lambda t: t.detach().double().requires_grad_(True),
+                         state.params), batch["data"].double())
+    finally:
+        ens.conv3d_fused_train = real
+    pairs = [(n, a, w) for n, a, w in zip(names, got, want)
+             if not (n.startswith("contr_") and n.endswith("bias"))
+             and bool(w.any())]
+    rel = {n: float((a - w).norm() / w.norm()) for n, a, w in pairs}
+    total = float(torch.sqrt(sum(((a - w) ** 2).sum() for _, a, w in pairs))
+                  / torch.sqrt(sum((w ** 2).sum() for _, _, w in pairs)))
+    deep = {n: v for n, v in rel.items() if n.startswith("center_")}
+    rest = {n: v for n, v in rel.items() if n not in deep}
+    worst_name = max(rest, key=rest.get)
+    deep_name = max(deep, key=deep.get)
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    zero = [n for n, a, w in zip(names, got, want)
+            if not bool(w.any()) and not n.endswith("bias")]
+    against64 = ""
+    if float64:
+        e = exact[names.index(deep_name)]
+        a, w = got[names.index(deep_name)], want[names.index(deep_name)]
+        against64 = (f"; against float64 at {deep_name}: kernel path "
+                     f"{float((a.double() - e).norm() / e.norm()):.2e}, "
+                     f"plain f32 path "
+                     f"{float((w.double() - e).norm() / e.norm()):.2e}")
+    log(f"{what} against the plain path: loss {got_loss:.7f} vs "
+        f"{want_loss:.7f} (rel {loss_rel:.2e}); gradient error {total:.2e} "
+        f"of the norm over {len(pairs)} leaves, largest {rest[worst_name]:.2e}"
+        f" ({worst_name}), at the bottleneck {deep[deep_name]:.2e} "
+        f"({deep_name}){against64}; leaves with a zero gradient on both "
+        f"sides {zero}; card {card}")
+    if (loss_rel > 1e-5 or total > 1e-3 or rest[worst_name] > 1e-2
+            or deep[deep_name] > BOTTLENECK_LEAF_LIMIT):
+        raise AssertionError(f"{what} disagrees with the plain path")
+
+
+def adam_moves_unused_head(exp, state, batch, card: str) -> None:
+    """One SSN pretraining step: ``cov_factor_conv`` is out of the graph,
+    so its gradient is 0 and Adam's first step moves each weight by
+    ``lr * g / (|g| + eps)`` with g = weight_decay * w, as optax does."""
+    import torch
+    before = {k: v.detach().clone()
+              for k, v in state.params["cov_factor_conv"].items()}
+    exp.train_step(state, batch, torch.Generator(device="cuda")
+                   .manual_seed(1), pretrain=True)
+    lr, wd = exp.learning_rate, exp.weight_decay
+    worst, moved = 0.0, 0.0
+    for key, w in before.items():
+        g = wd * w
+        want = w - lr * g / (g.abs() + 1e-8)
+        got = state.params["cov_factor_conv"][key].detach()
+        worst = max(worst, float((got - want).abs().max()))
+        moved = max(moved, float((got - w).abs().max()))
+    log(f"SSN pretraining step: cov_factor_conv moved by up to {moved:.3e} "
+        f"(lr {lr}), {worst:.2e} from Adam's step on a zero gradient with "
+        f"weight decay {wd}; card {card}")
+    if worst > 1e-7 or moved < 0.5 * lr:
+        raise AssertionError("the unused SSN head did not move as Adam "
+                             "moves a zero gradient")
+
+
+def profile_step(step, filename: str) -> dict:
+    """One step under torch.profiler: device time, idle share, the five
+    largest device ops."""
+    table, wall, busy, k1, dw = device_times(step)
+    with open(os.path.join(OUT_DIR, filename), "w") as fh:
+        fh.write(table.table(sort_by="self_device_time_total",
+                             row_limit=40))
+    ops = sorted((e for e in table if "CUDA" in str(e.device_type)
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:5]
+    top = [(e.key[:60], e.self_device_time_total / 1e3) for e in ops]
+    return {"wall_ms": wall, "busy_ms": busy, "k1_ms": k1, "dw_ms": dw,
+            "idle": None if not busy else 1 - busy / wall, "top": top}
+
+
+def time_steps(step, batch_volumes: int, label: str, filename: str,
+               card: str) -> dict:
+    """ms a step and volumes trained/s (median, min-max over TIMED_STEPS
+    steps after 2 warm-up steps, host clock ending in a synchronize),
+    peak memory, and a profile of one more step."""
+    import torch
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_step(step, filename)
+    med = statistics.median(times)
+    out = {"step_ms": times, "median_ms": med,
+           "volumes_per_s": batch_volumes / med * 1e3,
+           "min_vps": batch_volumes / max(times) * 1e3,
+           "max_vps": batch_volumes / min(times) * 1e3, "peak_gb": peak,
+           "profile": prof}
+    log(f"{label}: steps " + " / ".join(f"{t:.2f}" for t in times)
+        + f" ms, median {med:.2f} ms, {out['volumes_per_s']:.2f} volumes "
+        f"trained/s ({out['min_vps']:.2f}-{out['max_vps']:.2f}), peak "
+        f"{peak:.2f} GB; one profiled step: device {prof['busy_ms']:.2f} of "
+        f"{prof['wall_ms']:.2f} ms wall, idle share "
+        + ("not measured" if prof["idle"] is None else f"{prof['idle']:.3f}")
+        + f", K1 {prof['k1_ms']:.2f} ms, dW (cuDNN) {prof['dw_ms']:.2f} ms;"
+        " top device ops " + ", ".join(f"{n} {t:.2f} ms"
+                                       for n, t in prof["top"])
+        + f"; card {card}")
+    return out
+
+
+def experiment_for(name: str, root: str, extra: list):
+    """A port Experiment on config ``name`` at its published widths, its
+    state from the config's seed, and the first training batch of the
+    Case_1 fold on the card."""
+    from values_tpu_torch.config import compose, instantiate
+    from values_tpu_torch.training.experiment import Experiment
+    from values_tpu_torch.training.loops import _device_batch
+    from values_tpu_torch.training.main import DEFAULT_CONFIG_DIR
+    cfg = compose(DEFAULT_CONFIG_DIR, name, [
+        f"data_input_dir={root}", f"save_dir={root}/exp"] + extra)
+    dm = instantiate(cfg.datamodule, data_input_dir=root,
+                     batch_size=cfg.batch_size)
+    dm.setup()
+    batch = _device_batch(next(iter(dm.train_dataloader())), "cuda")
+    exp = Experiment(cfg, "cuda")
+    return cfg, exp, exp.init_state(cfg.seed, cfg.datamodule.patch_size), \
+        batch
+
+
+def joint_dropout_path(root: str, card: str) -> dict:
+    """EnsembleTrainer on dropout_config with N_MEMBERS members (G = 5),
+    JOINT_STEPS steps at f32 and at bf16, member m drawing its masks
+    from its own card generator; 35 launches a step at G = 5; the first
+    f32 step held against N_MEMBERS Experiment steps given the same
+    generators (so the same masks)."""
+    import torch
+    from values_tpu_torch.config import compose
+    from values_tpu_torch.ops.kernels.conv3d import conv3d_fused
+    from values_tpu_torch.training.ensemble import EnsembleTrainer
+    from values_tpu_torch.training.main import DEFAULT_CONFIG_DIR
+
+    def gens():
+        return [torch.Generator(device="cuda").manual_seed(200 + m)
+                for m in range(N_MEMBERS)]
+
+    out = {}
+    for name, extra in (("f32", []), ("bf16", ["+precision=bf16"])):
+        cfg = compose(DEFAULT_CONFIG_DIR, "dropout_config",
+                      [f"data_input_dir={root}", f"save_dir={root}/exp"]
+                      + extra)
+        trainer = EnsembleTrainer(cfg, N_MEMBERS, "cuda")
+        state = trainer.init_state(cfg.seed, PATCH)
+        batches = joint_batches(cfg, root, N_MEMBERS)
+        if name == "f32":
+            joint_step_against_experiments(trainer, state, batches[0], cfg,
+                                           card, generators=gens)
+        regimes = dict(conv3d_fused.regime_launches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        times = []
+        for batch in batches:
+            t0 = time.perf_counter()
+            _, losses = trainer.train_step(state, batch, gens())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches()
+        expect_launches(launches, {
+            "conv3d_fused": (K1_FORWARD + K1_DX) * JOINT_STEPS,
+            "conv3d_fused_train": K1_DX * JOINT_STEPS, "fused_entropy": 0,
+            "sampled_softmax_stats": 0},
+            f"joint dropout training {name} ({JOINT_STEPS} steps at "
+            f"G={N_MEMBERS})")
+        expect_f32_regime(regimes_since(regimes), name == "f32",
+                          f"joint dropout training {name}")
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"joint dropout {name}: losses {losses}")
+        med = statistics.median(times[1:])
+        vps = N_MEMBERS * TRAIN_BATCH / med * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = (profile_step(lambda: trainer.train_step(state, batches[0],
+                                                        gens()),
+                             "profile_joint_dropout_bf16.txt")
+                if name == "bf16" else None)
+        out[name] = {"step_ms": times, "median_ms": med,
+                     "volumes_per_s": vps, "peak_gb": peak,
+                     "launches": launches, "profile": prof}
+        log(f"joint dropout training {name}, {N_MEMBERS} members x batch "
+            f"{TRAIN_BATCH} x {PATCH}^3: steps " + " / ".join(
+                f"{t:.1f}" for t in times) + f" ms (median of steps 2-"
+            f"{JOINT_STEPS}: {med:.2f} ms), {vps:.2f} volumes trained/s, "
+            f"peak {peak:.2f} GB; losses " + " ".join(
+                f"{v:.4f}" for v in losses.tolist())
+            + f"; launches {json.dumps(launches)}" + (
+                "" if prof is None else
+                f"; one profiled step: device {prof['busy_ms']:.2f} of "
+                f"{prof['wall_ms']:.2f} ms wall, idle share "
+                + ("not measured" if prof["idle"] is None
+                   else f"{prof['idle']:.3f}")
+                + ", top device ops " + ", ".join(
+                    f"{n} {t:.2f} ms" for n, t in prof["top"]))
+            + f"; card {card}")
+    return out
+
+
+def write_lidc(root: str) -> dict:
+    """A synthetic LIDC tree under ``root`` (the reference's flat layout):
+    LIDC_PATIENTS x LIDC_NODULES 64^3 crops with 4 rater masks each and
+    a metadata.csv with patient ids and ratings; ``id_ood.csv`` made
+    from it by the port's ``lidc.calculate_rater_agreement``, so the
+    datamodule makes its own splits. Returns the row counts."""
+    from values_tpu_torch.core import nifti
+    from values_tpu_torch.data import lidc
+    rs = np.random.RandomState(8)
+    grid = np.indices((PATCH,) * 3).astype(np.float32)
+    features = ["subtlety", "internal Structure", "calcification",
+                "sphericity", "margin", "lobulation", "spiculation",
+                "texture", "malignancy"]
+    rows = []
+    for os_dir in ("images", "labels"):
+        os.makedirs(os.path.join(root, os_dir), exist_ok=True)
+    for p in range(LIDC_PATIENTS):
+        for n in range(LIDC_NODULES):
+            image_id = f"{p:04d}_{n:02d}"
+            center = rs.uniform(24, 40, 3)[:, None, None, None]
+            dist = np.sqrt(((grid - center) ** 2).sum(0))
+            radius = rs.uniform(4, 12)
+            image = (-800 + 900 * (dist < radius)
+                     + 60 * rs.randn(*dist.shape)).astype(np.float32)
+            nifti.save(image, os.path.join(root, "images",
+                                           f"{image_id}.nii.gz"))
+            segs = []
+            for r in range(4):
+                path = os.path.join(root, "labels",
+                                    f"{image_id}_{r:02d}_mask.nii.gz")
+                nifti.save((dist < radius + r - 1.5).astype(np.intc), path)
+                segs.append(path)
+            texture = [int(v) for v in (rs.randint(3, 6, 4)
+                                        if p < LIDC_ID_PATIENTS
+                                        else rs.randint(1, 3, 4))]
+            row = {"Patient ID": f"LIDC-IDRI-{p:04d}", "Scan ID": f"{p:04d}",
+                   "Nodule Index": f"{n:02d}",
+                   "Image Save Path": os.path.join(root, "images",
+                                                   f"{image_id}.nii.gz"),
+                   "Segmentation Save Paths": str(segs)}
+            row.update({f: str([3, 3, 3, 3]) for f in features})
+            row["texture"] = str(texture)
+            rows.append(row)
+    lidc.write_table(os.path.join(root, "metadata.csv"), list(rows[0]),
+                     rows)
+    kept = lidc.calculate_rater_agreement(root)
+    return {"nodules": len(rows), "labelled": len(kept),
+            "id": sum(r["texture_id"] is True for r in kept)}
+
+
+def lidc_path(card: str) -> dict:
+    """softmax_config_lidc through the training CLI for one epoch on the
+    synthetic LIDC tree (the datamodule preprocesses it and makes its
+    first-cycle splits from id_ood.csv); launches counted."""
+    from values_tpu_torch.core.io import load_pickle
+    root = tempfile.mkdtemp(dir=OUT_DIR, prefix="lidc_")
+    t0 = time.perf_counter()
+    counts = write_lidc(root)
+    write_s = time.perf_counter() - t0
+    ckpt, seconds, launches, losses = run_config_cli(
+        "softmax_config_lidc", root, "lidc", [], card)
+    fold = load_pickle(os.path.join(root, "splits_texture.pkl"))[0]
+    steps = -(-len(fold["train"]) // TRAIN_BATCH)
+    expect_launches(launches, {
+        "conv3d_fused": (K1_FORWARD + K1_DX) * steps
+        + K1_FORWARD * (len(fold["val"]) + 1),
+        "conv3d_fused_train": K1_DX * steps, "fused_entropy": 0,
+        "sampled_softmax_stats": 0}, "LIDC training CLI")
+    log(f"LIDC tree: {counts['nodules']} nodules of {LIDC_PATIENTS} "
+        f"patients ({counts['labelled']} with a texture label, "
+        f"{counts['id']} ID), written in {write_s:.2f} s; splits: "
+        + ", ".join(f"{k} {len(v)}" for k, v in fold.items())
+        + f"; one epoch {seconds:.2f} s (preprocessing and splitting "
+        f"included), {steps} steps; card {card}")
+    shutil.rmtree(root)
+    return {"launches": launches["conv3d_fused"], "steps": steps}
+
+
+def dropout_ssn_training_path(card: str) -> dict:
+    """The training of dropout and SSN models at published widths
+    (configs/dropout_config.yaml, ssn_config.yaml: UNet3D f 8, 64^3,
+    batch 8, Adam 3e-4, weight decay 1e-5; the SSN rank 10 with 10
+    samples) on a Case_1 made by the port's generator: the CLIs at f32
+    and bf16 (the SSN for 2 epochs, pretraining the first), launches
+    counted; the f32 first steps against the plain path; Adam on the
+    unused SSN head; joint MC-dropout training at G = 5; both
+    checkpoints through the score CLI; softmax_config_lidc on a
+    synthetic LIDC tree and augment=True on Case_1; step timings and
+    profiles."""
+    import torch
+    from values_tpu_torch.inference.score import run_score, score_cli
+    from values_tpu_torch.inference.scoring import score_rows
+    os.makedirs(OUT_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(dir=OUT_DIR, prefix="train8_")
+    gen_s = generate_case1(root)
+    log(f"Case_1 by the port's generator: {GEN_TRAIN} training and "
+        f"{GEN_TEST} test volumes of {PATCH}^3 with 3 raters in "
+        f"{gen_s:.2f} s; card {card}")
+    out = {"launches": {}}
+    runs = {}
+    for name, epochs, extra in (("dropout_config", 1, []),
+                                ("ssn_config", 2, SSN_EPOCHS)):
+        for version, prec in (("f32", []), ("bf16", ["+precision=bf16"])):
+            ckpt, _, launches, losses = run_config_cli(
+                name, root, f"{name}_{version}", extra + prec, card)
+            expect_launches(launches, training_launches(root, epochs),
+                            f"training CLI {name} {version} (35 K1 a step, "
+                            "17 of them K1b's dx; 18 a validation forward)")
+            out["launches"][f"{name} {version} CLI"] = launches
+            runs[(name, version)] = ckpt
+    # the f32 first steps against the plain path
+    _, dexp, dstate, dbatch = experiment_for("dropout_config", root, [])
+    step_against_plain(dexp, dstate, dbatch, 11, False,
+                       "first f32 dropout step", card, float64=True)
+    _, sexp, sstate, sbatch = experiment_for("ssn_config", root, [])
+    step_against_plain(sexp, sstate, sbatch, 12, True,
+                       "first f32 SSN pretraining step", card)
+    step_against_plain(sexp, sstate, sbatch, 13, False,
+                       "first f32 SSN sampling step", card)
+    adam_moves_unused_head(sexp, sstate, sbatch, card)
+    # step timings at G = 1
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out["timings"] = {}
+    for name in ("dropout_config", "ssn_config"):
+        for version, prec in (("f32", []), ("bf16", ["+precision=bf16"])):
+            _, exp, state, batch = experiment_for(name, root, prec)
+            pretrain = False
+            reset_launches()
+            exp.train_step(state, batch, gen, pretrain)
+            expect_launches(read_launches(), {
+                "conv3d_fused": K1_FORWARD + K1_DX,
+                "conv3d_fused_train": K1_DX, "fused_entropy": 0,
+                "sampled_softmax_stats": 0}, f"one {name} {version} step")
+            out["timings"][f"{name} {version}"] = time_steps(
+                lambda: exp.train_step(state, batch, gen, pretrain),
+                TRAIN_BATCH, f"{name} step {version}, batch {TRAIN_BATCH} "
+                f"x {PATCH}^3", f"profile_step_{name}_{version}.txt", card)
+    out["joint"] = joint_dropout_path(root, card)
+    # serve back the f32 checkpoints through the score CLI
+    with open(os.path.join(root, "Case_1", "splits.pkl"), "rb") as f:
+        n_val = len(pickle.load(f)[0]["val"])
+    batches = -(-n_val // TRAIN_BATCH)
+    for name, flags, k1 in (("dropout_config", ["--n_pred", str(N_PRED)],
+                             18 * N_PRED), ("ssn_config", [], 18)):
+        reset_launches()
+        scores = run_score(score_cli([
+            "--checkpoint_paths", runs[(name, "f32")], "-i", root, "--out",
+            os.path.join(root, f"scores_{name}.json"), "--test_split",
+            "val", "--batch_size", str(TRAIN_BATCH), "--device", "cuda"]
+            + flags))
+        launches = read_launches()
+        expect_launches(launches, {"conv3d_fused": k1 * batches,
+                                   "conv3d_fused_train": 0,
+                                   "fused_entropy": 0,
+                                   "sampled_softmax_stats": 0},
+                        f"score CLI on the {name} checkpoint")
+        if len(scores) != n_val or not all(
+                list(s) == score_rows() and all(np.isfinite(list(s.values())))
+                for s in scores.values()):
+            raise AssertionError(f"scores of the {name} checkpoint: "
+                                 f"{scores}")
+        out["launches"][f"score CLI on the {name} checkpoint"] = launches
+        log(f"score CLI on the trained {name} checkpoint "
+            f"{' '.join(flags)}: {n_val} val volumes, mean dice "
+            f"{np.mean([s['dice'] for s in scores.values()]):.4f}, all rows "
+            f"finite; launches {json.dumps(launches)}; card {card}")
+    # augment=True for one epoch on Case_1 (bf16)
+    _, _, launches, losses = run_config_cli(
+        "softmax_config", root, "augment",
+        ["+precision=bf16", "+datamodule.augment=true"], card)
+    expect_launches(launches, training_launches(root, 1), "augment=True")
+    out["launches"]["augment=True CLI"] = launches
+    shutil.rmtree(root)
+    out["lidc"] = lidc_path(card)
+    return out
+
+
 def time_k1_f32_chunk():
     """K1's ``f32`` regime at the test_3d default chunk's largest conv,
     expand_1_1 (B 12, 64^3, G 5, 8 + 8 -> 8 channels per group, prologue,
@@ -2587,6 +3081,13 @@ def time_k1b(launches):
     # 10 back-to-back calls per sample, for each of them alike: one call
     # is shorter than autograd's host time around it
     ms = cuda_ms(lambda: dx("kernel"), inner=10)
+    # the card's own time for one dx, without the host's: every kernel of
+    # 10 calls under the profiler (the fold, the weight flip, K1), and
+    # K1's share, each over 10
+    def ten_calls():
+        for _ in range(10):
+            dx("kernel")
+    _, _, busy, k1_busy, _ = device_times(ten_calls)
     plain_ms = cuda_ms(lambda: dx("plain"), reps=5)
     library_ms = cuda_ms(lambda: library([True, False, False]), inner=10)
     dw_library_ms = cuda_ms(lambda: library([False, True, False]),
@@ -2602,7 +3103,8 @@ def time_k1b(launches):
             "launches": launches["conv3d_fused_train"], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "dw_library_ms": dw_library_ms,
+            "dw_library_ms": dw_library_ms, "device_ms": busy / 10,
+            "k1_device_ms": k1_busy / 10,
             "shape": f"dx of expand_1_1 B={b} {PATCH}^3 G=1 Cin={cin} "
                      f"Cout={cout} bf16, leaky fold + K1 on the flipped "
                      "weight"}
@@ -2997,7 +3499,10 @@ def main() -> int:
                          f"({k['probs_bound_by']}), plain "
                          f"{k['probs_plain_ms']:.3f} ms")
             if "dw_library_ms" in k:
-                extra = (f"; dW at the same conv (cuDNN weight gradient) "
+                extra = (f"; device time (profiler, 10 calls) "
+                         f"{k['device_ms']:.3f} ms, of it K1 "
+                         f"{k['k1_device_ms']:.3f} ms; dW at the same conv "
+                         f"(cuDNN weight gradient) "
                          f"{k['dw_library_ms']:.3f} ms")
             if "test_3d_f32" in k:
                 t = k["test_3d_f32"]
@@ -3034,6 +3539,21 @@ def main() -> int:
             agg_patch=AGG_PATCH, threshold=THRESHOLD, dtype=torch.bfloat16)
         profile_batch(a_score, (a_grouped, a_vols, a_gt, 9), "aleatoric",
                       "profile_aleatoric_path.txt", head_numel)
+    with phase("dropout and SSN training", smi):
+        trained = dropout_ssn_training_path(smi)
+        for run, launches in trained["launches"].items():
+            kernels[0]["path_launches"][run] = launches["conv3d_fused"]
+            if launches["conv3d_fused_train"]:
+                kernels[1]["path_launches"][run] = launches[
+                    "conv3d_fused_train"]
+        for dtype, run in trained["joint"].items():
+            key = f"joint dropout training {dtype} ({JOINT_STEPS} steps, " \
+                f"G={N_MEMBERS})"
+            kernels[0]["path_launches"][key] = run["launches"]["conv3d_fused"]
+            kernels[1]["path_launches"][key] = run["launches"][
+                "conv3d_fused_train"]
+        kernels[0]["path_launches"]["softmax_config_lidc CLI"] = trained[
+            "lidc"]["launches"]
     log(f"headline: {vps:.2f} volumes/s deterministic, {a_vps:.2f} "
         f"volumes/s aleatoric ({N_ALEATORIC} samples) (ensemble-{N_MEMBERS},"
         f" {PATCH}^3, bf16, batch {BATCH}); training "
@@ -3057,10 +3577,19 @@ def main() -> int:
         + f"; a dropout pass {fusion['dropout pass']['ms']:.3f} ms against "
         f"a fused forward {fusion['fused forward']['ms']:.3f} ms; test_3d "
         f"engine -tta {tta_windows_per_s:.2f} windows/s; card {smi}")
+    log("headline, dropout and SSN training (UNet3D f 8, 64^3, batch "
+        f"{TRAIN_BATCH}; median of {TIMED_STEPS} steps, min-max): " + "; ".join(
+            f"{n} {r['volumes_per_s']:.2f} ({r['min_vps']:.2f}-"
+            f"{r['max_vps']:.2f}) volumes trained/s, {r['median_ms']:.2f} ms"
+            for n, r in trained["timings"].items())
+        + "; joint dropout at G=5 " + ", ".join(
+            f"{n} {r['volumes_per_s']:.2f} volumes trained/s"
+            for n, r in trained["joint"].items()) + f"; card {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     # the run drives one card, whatever else the machine shows
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": 1}}), flush=True)
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": 1}}), flush=True)
     return 0
 
 

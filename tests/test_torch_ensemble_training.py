@@ -35,7 +35,6 @@ from values_tpu_torch.training.experiment import (Experiment, tree_leaves,
                                                   tree_map)
 
 P, B, F, M = 16, 2, 2, 2
-NOT_PORTED = "Dropout and SSN training"
 
 
 def _cfg(**extra):
@@ -238,12 +237,17 @@ def test_init_state_starts_member_m_from_seed_plus_m():
                                   "dropout", "patch"])
 def test_refusals(case):
     """As the JAX trainer: members < 1, a model outside the UNet3D
-    family and gradient_clip_val raise ValueError; a dropout model raises
-    NotImplementedError naming its ROADMAP item; a patch that four 2x
-    pools do not divide raises ValueError."""
+    family and gradient_clip_val raise ValueError; a patch that four 2x
+    pools do not divide raises ValueError. A dropout model is no longer
+    refused: it trains (tests/test_torch_dropout_training.py), and an SSN
+    with dropout is still refused, as any SSN."""
     if case == "dropout":
-        with pytest.raises(NotImplementedError, match=NOT_PORTED):
-            EnsembleTrainer(_cfg(model={"do_dropout": True}), M, "cpu")
+        assert EnsembleTrainer(_cfg(model={"do_dropout": True}), M,
+                               "cpu").member.has_dropout
+        with pytest.raises(ValueError, match="SSN"):
+            EnsembleTrainer(_cfg(model={
+                "_target_": "values_tpu.models.ssn_unet3d.SsnUNet3D",
+                "do_dropout": True}), M, "cpu")
         return
     if case == "patch":
         with pytest.raises(ValueError, match="multiple of 16"):

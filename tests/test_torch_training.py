@@ -362,20 +362,33 @@ def test_resume_and_retention(toy, tmp_path):
 
 @pytest.mark.parametrize("case", ["dropout", "ssn", "devices", "orbax",
                                   "2d", "augment", "hrnet"])
-def test_refusals(toy, tmp_path, case):
+def test_refusals(toy, tmp_path, case, monkeypatch):
     """What is not ported raises NotImplementedError naming its ROADMAP
-    item."""
+    item. Dropout and SSN models now train (tests/test_torch_dropout_
+    training.py, test_torch_ssn_training.py): their configs still raise
+    for what is not ported, data parallelism. ``augment=True`` now runs
+    the native ops (tests/test_torch_lidc.py); a failed build of them
+    raises instead of falling back to numpy."""
     if case == "augment":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            NumpyBatchLoader([], 2, 16, augment=True)
+        from values_tpu_torch.data import native
+        monkeypatch.setattr(native, "GXX_FLAGS", ("--no-such-flag",))
+        native._load.cache_clear()
+        loader = NumpyBatchLoader(get_train_data_samples(
+            str(toy / "Case_1" / "preprocessed"), num_raters=3), 2, 8,
+            augment=True, prefetch=0)
+        try:
+            with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+                next(iter(loader))
+        finally:
+            native._load.cache_clear()
         return
     if case == "hrnet":
         with pytest.raises(NotImplementedError, match="'2D'"):
             locate("values_tpu.models.hrnet.get_seg_model")
         return
     name, extra = {
-        "dropout": ("dropout_config", []),
-        "ssn": ("ssn_config", []),
+        "dropout": ("dropout_config", ["gpus=2"]),
+        "ssn": ("ssn_config", ["gpus=2"]),
         "devices": ("softmax_config", ["gpus=2"]),
         "orbax": ("softmax_config", ["checkpoint_format=orbax"]),
         "2d": ("softmax_config", ["+AUGMENTATIONS={}"]),

@@ -19,6 +19,7 @@ from .node import Config
 _MODEL = "values_tpu_torch.models.unet3d.UNet3D"
 _SSN = "values_tpu_torch.models.ssn_unet3d.SsnUNet3D"
 _TOY = "values_tpu_torch.data.toy_datamodule.ToyDataModule3D"
+_LIDC = "values_tpu_torch.data.lidc_datamodule.LidcIdriDataModule3D"
 _LOGGING = "values_tpu_torch.training.tb_logging"
 _OPTIM = "values_tpu_torch.training.optim"
 
@@ -30,6 +31,9 @@ TARGET_ALIASES: Dict[str, str] = {
     "values_tpu.models.ssn_unet3d.SsnUNet3D": _SSN,
     "uncertainty_modeling.toy_datamodule_3D.ToyDataModule3D": _TOY,
     "values_tpu.data.toy_datamodule.ToyDataModule3D": _TOY,
+    "uncertainty_modeling.lidc_idri_datamodule_3D.LidcIdriDataModule3D":
+        _LIDC,
+    "values_tpu.data.lidc_datamodule.LidcIdriDataModule3D": _LIDC,
     "pytorch_lightning.loggers.TensorBoardLogger":
         f"{_LOGGING}.TensorBoardLogger",
     "values_tpu.training.tb_logging.TensorBoardLogger":
@@ -49,10 +53,6 @@ for _torch_name, _name in (("SGD", "sgd"), ("Adam", "adam"),
 NOT_PORTED: Dict[str, str] = {
     "uncertainty_modeling.models.hrnet_module.get_seg_model": "2D",
     "values_tpu.models.hrnet.get_seg_model": "2D",
-    "uncertainty_modeling.lidc_idri_datamodule_3D.LidcIdriDataModule3D":
-        "Evaluation, reporting, data",
-    "values_tpu.data.lidc_datamodule.LidcIdriDataModule3D":
-        "Evaluation, reporting, data",
     "uncertainty_modeling.data.torch_dataloader.BaseDataModule": "2D",
     "values_tpu.data.base_datamodule.BaseDataModule": "2D",
 }
@@ -64,7 +64,10 @@ def locate(path: str) -> Any:
     path = TARGET_ALIASES.get(path, path)
     if path.startswith(("values_tpu.", "uncertainty_modeling.",
                         "evaluation.")):
-        item = NOT_PORTED.get(path)
+        item = NOT_PORTED.get(path) or (
+            "Evaluation, reporting"
+            if path.startswith(("evaluation.", "values_tpu.evaluation."))
+            else None)
         raise NotImplementedError(
             f"{path} has no counterpart in values_tpu_torch yet (ROADMAP.md,"
             f" Queue 1{f': {item!r}' if item else ''})")

@@ -28,9 +28,10 @@ seeded by (seed, epoch, position-in-epoch), so ``num_workers=1`` and
 keeps the legacy sequential stream (one shared per-epoch RandomState).
 
 The port's copy of ``values_tpu/data/pipeline.py``: the same seeds give
-byte-equal batches. ``augment=True`` raises ``NotImplementedError``: the
-mirror/noise ops run in the JAX package's native binding, which comes
-over with ROADMAP.md Queue 1 item "Evaluation, reporting, data".
+byte-equal batches, with ``augment=True`` too. The mirror and the noise
+run in the port's own build of the native ops (:mod:`.native`, which
+raises if g++ cannot build them); the decisions (which axes, the noise's
+scale and seed) are drawn from the sample's RandomState, as there.
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from . import native
+
 
 class NumpyBatchLoader:
     """Finite per-epoch iterator over training or validation batches."""
@@ -50,12 +53,8 @@ class NumpyBatchLoader:
                  augment: bool = False, seed: int = 42,
                  prefetch: int = 2, drop_last: bool = False,
                  num_workers: int = 0):
-        if augment:
-            raise NotImplementedError(
-                "augment=True needs the native mirror/noise binding, which "
-                "is not ported yet (ROADMAP.md, Queue 1: 'Evaluation, "
-                "reporting, data')")
         self.samples = list(samples)
+        self.augment = augment
         self.batch_size = batch_size
         self.patch_size = patch_size
         self.training = training
@@ -104,6 +103,9 @@ class NumpyBatchLoader:
             if label_path is not None:
                 label_patch = np.asarray(
                     np.load(label_path, mmap_mode="r")[sl], dtype=np.int32)
+            if self.augment:
+                image_patch, label_patch = self._augment(
+                    image_patch, label_patch, rs)
             return image_patch, label_patch, label_path
         # validation: fixed window
         crop = sample["crop_idx"]
@@ -114,6 +116,25 @@ class NumpyBatchLoader:
             label_patch = np.asarray(
                 np.load(label_path, mmap_mode="r")[sl], dtype=np.int32)
         return image_patch, label_patch, label_path
+
+    @staticmethod
+    def _augment(image: np.ndarray, label: Optional[np.ndarray],
+                 rs: np.random.RandomState):
+        """MirrorTransform then GaussianNoiseTransform (``_augment``,
+        :112-130): per axis a flip with p = 0.5, a noise scale ~ U(0,
+        0.1) and a noise seed, all from ``rs``; the arrays are copied
+        first (a crop may be a view of the memory-mapped file)."""
+        flips = sum((1 << axis) for axis in range(3) if rs.uniform() < 0.5)
+        scale = rs.uniform(0.0, 0.1)
+        image = np.array(image, dtype=np.float32, order="C")
+        if flips:
+            image = native.mirror3d(image, flips)
+            if label is not None:
+                label = native.mirror3d(
+                    np.array(label, dtype=np.int32, order="C"), flips)
+        image = native.add_gaussian_noise(
+            image, float(scale), int(rs.randint(0, 2 ** 31)))
+        return image, label
 
     def _parallel_samples(self, order, epoch: int) -> Iterator:
         """Fan sample assembly out over the thread pool, in order, with a

@@ -33,8 +33,9 @@ The training forward (:func:`grouped_forward_train`, :func:`train_forward`)
 is the counterpart of ``grouped_forward_packed(trainable=True)`` (:471-590)
 and ``packed_train_forward`` (:942-989): every 3x3x3 conv goes through
 K1b (:func:`~values_tpu_torch.ops.kernels.conv3d.conv3d_fused_train`),
-and the norms, pools, concats and transposed convs stay ordinary
-differentiable torch ops.
+and the norms, pools, concats, dropout masks and transposed convs stay
+ordinary differentiable torch ops. :func:`ssn_train_forward` is the
+SSN's (``packed_ssn_train_forward``, :992-1035).
 
 :func:`group_member_variables` and :func:`ungroup_member_variables` move
 between M flax-layout member trees and the grouped tree
@@ -311,27 +312,65 @@ def _split_head(out: torch.Tensor, params: Mapping, apply_final: bool):
 
 
 def train_forward(params: Mapping[str, Mapping], x: torch.Tensor,
-                  apply_final: bool = True):
+                  apply_final: bool = True,
+                  keep_masks: Optional[Sequence[torch.Tensor]] = None):
     """The differentiable single-model UNet3D forward of the training
     step (``packed_train_forward``, :942-989): flax-layout ``params`` (in
     x's dtype) and an NDHWC batch give logits (B, D, H, W, C), ``(mu, s)``
     with the aleatoric head, or the pre-head features with
-    ``apply_final=False``."""
+    ``apply_final=False``. ``keep_masks``: a dropout model's 17 masks of
+    the step (:func:`draw_keep_masks`)."""
     out = grouped_forward_train(single_member_tree(params), x, 1,
-                                apply_final=apply_final)
+                                apply_final=apply_final,
+                                keep_masks=keep_masks)
     return _split_head(out, params, apply_final)
 
 
-def eval_forward(params: Mapping[str, Mapping], x: torch.Tensor):
+def eval_forward(params: Mapping[str, Mapping], x: torch.Tensor,
+                 apply_final: bool = True):
     """The gradient-free single-model forward of the validation step
     (``_packed_val_apply``, experiment.py:309-330): the fused inference
-    pipeline at M=1. Returns what :func:`train_forward` returns."""
+    pipeline at M=1, without dropout. Returns what :func:`train_forward`
+    returns."""
     weights = {name: {leaf: t.detach().to(x.dtype).contiguous()
                       for leaf, t in leaves.items()}
                for name, leaves in single_member_tree(params).items()}
     with torch.no_grad():
-        out = grouped_forward_fused(weights, x, 1)
-    return _split_head(out, params, True)
+        out = grouped_forward_fused(weights, x, 1, apply_final=apply_final)
+    return _split_head(out, params, apply_final)
+
+
+def ssn_heads(params: Mapping[str, Mapping], dtype: torch.dtype
+              ) -> Dict[str, Tuple]:
+    """The SSN's three 1x1x1 heads of a flax-layout tree as
+    :func:`~values_tpu_torch.models.ssn_unet3d.ssn_distribution` takes
+    them, in ``dtype`` (from the tree's own type: a bf16 step's heads are
+    its bf16-rounded weights)."""
+    out = {}
+    for name in SSN_HEADS:
+        kernel = params[name]["kernel"]
+        out[name] = (kernel.reshape(kernel.shape[-2], kernel.shape[-1])
+                     .to(dtype), params[name]["bias"].to(dtype))
+    return out
+
+
+def ssn_train_forward(params: Mapping[str, Mapping], x: torch.Tensor,
+                      num_classes: int, rank: int, epsilon: float = 1e-5,
+                      mean_only: bool = False,
+                      keep_masks: Optional[Sequence[torch.Tensor]] = None,
+                      trainable: bool = True) -> LowRankMVN:
+    """The SSN's training form (``packed_ssn_train_forward``, :992-1035):
+    the trunk of :func:`train_forward` without its head (K1 forward, K1b
+    backward), or of the fused :func:`eval_forward` with ``trainable``
+    False (the validation step's), its features cast to float32 (a
+    float64 run stays in float64), then the three heads in that type;
+    ``mean_only`` (pretraining) gives a zero factor."""
+    features = (train_forward(params, x, apply_final=False,
+                              keep_masks=keep_masks) if trainable
+                else eval_forward(params, x, apply_final=False))
+    dtype = torch.promote_types(features.dtype, torch.float32)
+    return ssn_distribution(features.to(dtype), ssn_heads(params, dtype),
+                            num_classes, rank, epsilon, mean_only)
 
 
 def cast_weights(weights: Mapping[str, Mapping[str, torch.Tensor]],
@@ -485,6 +524,18 @@ def dropout_site_shapes(weights: Mapping[str, Mapping[str, torch.Tensor]],
     shapes += [at(lvl, f"expand_{lvl}_{i}") for lvl in (4, 3, 2, 1)
                for i in (1, 2)]
     return shapes
+
+
+def draw_keep_masks(weights: Mapping[str, Mapping[str, torch.Tensor]],
+                    x_shape: Tuple[int, ...],
+                    generator: Optional[torch.Generator], device
+                    ) -> List[torch.Tensor]:
+    """The 17 keep masks of one training step of the grouped ``weights``
+    (:func:`single_member_tree` at M = 1) on an input of ``x_shape``:
+    :func:`draw_dropout_masks` at :func:`dropout_site_shapes`. The masks
+    span all M*C channels of a site, so each member's group has its own."""
+    return draw_dropout_masks(dropout_site_shapes(weights, x_shape),
+                              generator, device)
 
 
 def dropout_forward(weights: Mapping[str, Mapping[str, torch.Tensor]],

@@ -64,9 +64,9 @@ class LowRankMVN:
     def degenerate(self) -> torch.Tensor:
         """(B,) bool: where torch's constructor would fail, i.e. where the
         float32 Cholesky of ``I + W^T D^-1 W`` fails or is not finite.
-        One batched factorization, kept on the device."""
-        w = self.cov_factor.to(torch.float32)
-        w_d = w / self.cov_diag.to(torch.float32)[..., None]
+        One batched factorization, kept on the device, outside autograd."""
+        w = self.cov_factor.detach().to(torch.float32)
+        w_d = w / self.cov_diag.detach().to(torch.float32)[..., None]
         cap = torch.eye(w.shape[-1], dtype=torch.float32, device=w.device) \
             + w_d.transpose(1, 2) @ w
         chol, info = torch.linalg.cholesky_ex(cap)
@@ -74,10 +74,12 @@ class LowRankMVN:
 
     def sampling_terms(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(factor (B, N, R), zero where :meth:`degenerate`; sqrt(cov_diag)
-        (B, N)): what every sample reuses."""
-        keep = ~self.degenerate()
-        factor = self.cov_factor * keep[:, None, None].to(
-            self.cov_factor.dtype)
+        (B, N)): what every sample reuses. A degenerate member's factor
+        is replaced, not scaled, so its gradient there is zero and a
+        non-finite factor leaves no NaN (the JAX ``jnp.where``)."""
+        factor = torch.where(self.degenerate()[:, None, None],
+                             torch.zeros_like(self.cov_factor),
+                             self.cov_factor)
         return factor, torch.sqrt(self.cov_diag)
 
     def rsample(self, generator: Optional[torch.Generator], n: int = 1,
@@ -95,10 +97,13 @@ class LowRankMVN:
 
 
 def ssn_distribution(features: torch.Tensor, heads, num_classes: int,
-                     rank: int, epsilon: float) -> LowRankMVN:
+                     rank: int, epsilon: float,
+                     mean_only: bool = False) -> LowRankMVN:
     """Trunk features (B, D, H, W, F) and the heads' 1x1x1 weights ->
     the low-rank normal, in the features' type. ``heads`` maps each name
-    of :data:`SSN_HEADS` to ``(kernel (F, cout), bias (cout,))``."""
+    of :data:`SSN_HEADS` to ``(kernel (F, cout), bias (cout,))``;
+    ``mean_only`` (the SSN's pretraining) gives a zero factor and leaves
+    the factor head out of the graph."""
     b = features.shape[0]
 
     def head(name):
@@ -108,6 +113,8 @@ def ssn_distribution(features: torch.Tensor, heads, num_classes: int,
 
     mean = head("mean_conv").reshape(b, -1)
     cov_diag = torch.exp(head("log_cov_diag_conv").reshape(b, -1)) + epsilon
+    if mean_only:
+        return LowRankMVN(mean, cov_diag, mean.new_zeros(mean.shape + (rank,)))
     # torch: view(B, R, C, V) -> flatten -> transpose: factor[b, c*V+v, r]
     raw = head("cov_factor_conv").reshape(b, rank, -1)   # (B, R, C*V)
     return LowRankMVN(mean, cov_diag, raw.transpose(1, 2))

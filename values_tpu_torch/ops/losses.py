@@ -1,8 +1,8 @@
 """Training losses: soft Dice, cross entropy and the reference's combined
 objectives.
 
-The port's copy of ``values_tpu/ops/losses.py:27-126`` (reference:
-uncertainty_modeling/loss_modules.py:7-94, lightning_experiment.py:239-266):
+The port's copy of ``values_tpu/ops/losses.py:27-153`` (reference:
+uncertainty_modeling/loss_modules.py:7-94, lightning_experiment.py:175-266):
 
 - :func:`soft_dice_loss`: one-hot targets, per-(batch, class)
   ``-(2 intersect + smooth) / (sum + smooth)``, smooth 1e-5 in both
@@ -115,3 +115,27 @@ def aleatoric_sampling_loss(mu: torch.Tensor, s: torch.Tensor,
     log_avg = torch.logsumexp(log_sample_prob, dim=0) - math.log(n_samples)
     return (soft_dice_loss(torch.exp(log_avg), target)
             + nll_loss(log_avg, target))
+
+
+def ssn_mc_loglikelihood_loss(logit_samples: torch.Tensor,
+                              target: torch.Tensor,
+                              ignore_index: int = 0) -> torch.Tensor:
+    """The SSN's Monte-Carlo log-likelihood loss
+    (lightning_experiment.py:175-219): ``logit_samples`` (S, B, C,
+    *spatial), ``target`` (B, *spatial) integers. Reduced as the JAX
+    function orders it: per-voxel log-likelihoods (CE with
+    ``ignore_index`` unless it is 0, ignored voxels 0) summed over the
+    voxels, then ``logsumexp`` over the samples minus ``log S``, then the
+    batch mean, negated."""
+    n_samples, batch = logit_samples.shape[:2]
+    target_rep = target[None].expand((n_samples,) + tuple(target.shape))
+    flat_logits = logit_samples.reshape(n_samples * batch,
+                                        logit_samples.shape[2], -1)
+    flat_target = target_rep.reshape(n_samples * batch, -1)
+    log_prob = -cross_entropy(
+        flat_logits, flat_target,
+        ignore_index=ignore_index if ignore_index != 0 else None,
+        reduction="none").reshape(n_samples, batch, -1)
+    loglik = torch.mean(torch.logsumexp(log_prob.sum(dim=-1), dim=0)
+                        - math.log(n_samples))
+    return -loglik

@@ -17,8 +17,11 @@ The members stay independent:
   losses gives each member the gradient of its own run;
 - Adam is elementwise, so member m's update reads only its own gradients;
 - member m starts from its own seed (``seed + m``, the reference's
-  per-member seed override), sees its own data stream and, with the
-  aleatoric objective, draws its normals from its own generator.
+  per-member seed override), sees its own data stream and draws from its
+  own generator: a dropout model's keep masks for its channel group,
+  then the aleatoric objective's normals, in the order of an
+  ``Experiment`` step. So a joint step given the members' generators is
+  M ``Experiment`` steps given the same generators.
 
 :meth:`EnsembleTrainer.save_member_checkpoints` writes one native
 checkpoint per member, which ``test_3d --checkpoint_paths`` of either
@@ -34,6 +37,7 @@ import torch
 
 from ..config import Config
 from ..config.instantiate import TARGET_ALIASES
+from ..models import ensemble_unet3d as ens
 from ..models.ensemble_unet3d import (grouped_forward_train,
                                       group_member_variables,
                                       ungroup_member_variables)
@@ -56,15 +60,13 @@ class EnsembleTrainState:
 
 class EnsembleTrainer:
     """Step-level API for joint deep-ensemble training of the 3D UNet3D
-    family (plain or aleatoric head), on ``device`` (the card unless
-    ``"cpu"`` is asked for).
+    family (plain, MC-dropout or aleatoric head), on ``device`` (the card
+    unless ``"cpu"`` is asked for).
 
     Raises ValueError, as the JAX trainer does, for ``members < 1``, a
     model outside the UNet3D family (SSN and 2D models train per member
     through ``Experiment``) and ``gradient_clip_val`` (the global norm
-    would couple the members); a dropout model raises
-    NotImplementedError (ROADMAP.md Queue 1, "Dropout and SSN
-    training").
+    would couple the members).
     """
 
     def __init__(self, cfg: Config, members: int, device=None):
@@ -103,27 +105,39 @@ class EnsembleTrainer:
         return EnsembleTrainState(params, self.optimizer(tree_leaves(params)))
 
     # ------------------------------------------------------------------
-    def _member_outputs(self, params, data: torch.Tensor) -> torch.Tensor:
+    def _member_outputs(self, params, data: torch.Tensor,
+                        generators: Sequence[Optional[torch.Generator]]
+                        ) -> torch.Tensor:
         """data (M, B, D, H, W, Cin) -> the grouped forward's output (M,
-        B, D, H, W, C_out), member m's batch in input channel block m."""
+        B, D, H, W, C_out), member m's batch in input channel block m; a
+        dropout model's keep masks drawn per member from
+        ``generators[m]`` and joined on each site's channel groups."""
         m, b, d, h, w, cin = data.shape
         if m != self.members:
             raise ValueError(f"data holds {m} member batches, the trainer "
                              f"{self.members} members")
         x = data.movedim(0, -2).reshape(b, d, h, w, m * cin)
         params, x = self.member._cast(params, x)
-        return grouped_forward_train(params, x, m).movedim(-2, 0)
+        masks = None
+        if self.member.has_dropout:
+            shapes = [s[:-1] + (s[-1] // m,) for s in
+                      ens.dropout_site_shapes(params, tuple(x.shape))]
+            drawn = [ens.draw_dropout_masks(shapes, g, x.device)
+                     for g in generators]
+            masks = [torch.cat(site, dim=-1) for site in zip(*drawn)]
+        return grouped_forward_train(params, x, m,
+                                     keep_masks=masks).movedim(-2, 0)
 
     def loss(self, params, batch: Dict[str, torch.Tensor],
              generators: Optional[Sequence[torch.Generator]] = None
              ) -> torch.Tensor:
         """Per-member losses (M,): ``batch["data"]`` (M, B, D, H, W, Cin)
         float and ``batch["seg"]`` (M, B, D, H, W) integer hold member m's
-        own stream in row m; ``generators[m]`` draws member m's aleatoric
-        normals."""
-        out = self._member_outputs(params, batch["data"])
-        target = batch["seg"].long()
+        own stream in row m; ``generators[m]`` draws member m's keep
+        masks and aleatoric normals."""
         gens = generators or [None] * self.members
+        out = self._member_outputs(params, batch["data"], gens)
+        target = batch["seg"].long()
         losses = []
         for m in range(self.members):
             out_m = (tuple(torch.chunk(out[m], 2, dim=-1))

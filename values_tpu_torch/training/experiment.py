@@ -3,24 +3,34 @@ validation steps.
 
 The port's counterpart of ``values_tpu/training/experiment.py`` (reference:
 uncertainty_modeling/lightning_experiment.py:28-444) with its packed
-backend (``train_backend="packed"``, :240-264, :309-330), the only one the
-port has: the training forward is
-:func:`~values_tpu_torch.models.ensemble_unet3d.train_forward`, whose
-every 3x3x3 conv runs K1 forward and K1b backward, and validation runs
-the fused inference forward at M=1. Two objectives, chosen as the
-reference's ``training_step`` chooses (:239-266):
+backend (``train_backend="packed"``, :188-358), the only one the port
+has: the training forward is
+:func:`~values_tpu_torch.models.ensemble_unet3d.train_forward` (or
+``ssn_train_forward``), whose every 3x3x3 conv runs K1 forward and K1b
+backward, and validation runs the fused inference forward at M=1. The
+objectives, chosen as the reference's ``training_step`` chooses
+(:175-266):
 
+- SSN models: the Monte-Carlo log-likelihood of ``n_aleatoric_samples``
+  logit samples of the low-rank normal, its factor zero while
+  ``pretrain`` (the first ``pretrain_epochs`` epochs);
 - aleatoric logit sampling (``aleatoric_loss``): Dice + NLL of the
   logsumexp-averaged log-softmax of N samples ``mu + exp(s/2) eps``;
 - otherwise SoftDice(softmax) + CE, or CE with ``ignore_index``.
 
+A dropout model draws the step's 17 keep masks first, then the SSN
+normals or the aleatoric noise, from the step's one generator (the JAX
+step's key order). Validation is deterministic: dropout stays off.
+
 Parameters are a flax-layout tree of float32 leaf tensors (the JAX
 package's tree, so checkpoints carry it unchanged); ``precision=bf16``
-casts them and the batch to bfloat16 for the forward and backward, and
-the optimizer updates the float32 leaves (``experiment.py:64-68``).
-Refused with ``NotImplementedError``: dropout and SSN models (ROADMAP.md
-Queue 1, "Dropout and SSN training"; both serve through the inference
-paths) and 2D models ("2D").
+casts them and the batch to bfloat16 for the forward and backward (the
+SSN heads run in float32 on the cast weights), and the optimizer updates
+the float32 leaves (``experiment.py:64-68``). Every leaf gets a gradient
+each step, zero where the step does not use it (the SSN's factor head
+while pretraining), as ``jax.grad`` gives one: Adam then decays and
+moves that leaf as optax does. 2D models raise ``NotImplementedError``
+(ROADMAP.md Queue 1, "2D").
 """
 from __future__ import annotations
 
@@ -33,8 +43,9 @@ import torch
 
 from ..config import Config, instantiate
 from ..core.device import resolve_device
-from ..models.ensemble_unet3d import (PATCH_MULTIPLE, eval_forward,
-                                      train_forward)
+from ..models.ensemble_unet3d import (PATCH_MULTIPLE, draw_keep_masks,
+                                      eval_forward, single_member_tree,
+                                      ssn_train_forward, train_forward)
 from ..models.ssn_unet3d import SsnUNet3D
 from ..models.torch_import import unet3d_params_from_torch
 from ..ops import losses as L
@@ -85,6 +96,7 @@ class Experiment:
         self.weight_decay = float(cfg.get("weight_decay", 1e-6))
         self.aleatoric_loss = bool(cfg.get("aleatoric_loss") or False)
         self.n_aleatoric_samples = int(cfg.get("n_aleatoric_samples", 10))
+        self.pretrain_epochs = int(cfg.get("pretrain_epochs", 5))
         clip = cfg.get("gradient_clip_val")
         self.gradient_clip_val = float(clip) if clip else None
         precision = str(cfg.get("precision", "32")).lower()
@@ -92,19 +104,17 @@ class Experiment:
         model_kwargs = {}
         if cfg.get("aleatoric_loss") is not None:
             model_kwargs["aleatoric_loss"] = cfg.get("aleatoric_loss")
-        # the model is built (and its config checked: dropout, SSN and 2D
-        # targets raise) under a forked RNG here, and seeded in init_state
+        # the model is built (and its config checked: 2D targets raise)
+        # under a forked RNG here, and seeded in init_state
         self._build_model = functools.partial(instantiate, cfg.model,
                                               **model_kwargs)
         with torch.random.fork_rng(devices=[]):
             model = self._build_model()
-        if isinstance(model, SsnUNet3D) or model.do_dropout:
-            raise NotImplementedError(
-                "training a dropout or SSN model is not ported to "
-                "values_tpu_torch yet (ROADMAP.md, Queue 1: 'Dropout and SSN "
-                "training'); their checkpoints serve through the score and "
-                "test_3d CLIs")
-        self.num_classes = model.final.out_channels
+        self.is_ssn = isinstance(model, SsnUNet3D)
+        self.has_dropout = bool(model.do_dropout)
+        self.num_classes = int(model.num_classes)
+        self.rank = getattr(model, "rank", None)
+        self.epsilon = getattr(model, "epsilon", None)
         self.optimizer = self._build_optimizer()
         self.lr_schedule = self._build_lr_schedule()
 
@@ -129,13 +139,13 @@ class Experiment:
         under ``torch.manual_seed(seed)`` in a forked RNG, as a flax tree
         of numpy arrays: the heads flax never creates
         (``output_reconstruction_map``, ``final`` beside
-        ``final_aleatoric``) are left out."""
+        ``final_aleatoric`` or the SSN's heads) are left out."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(int(seed))
             model = self._build_model()
         params = unet3d_params_from_torch(model.state_dict())["params"]
         params.pop("output_reconstruction_map", None)
-        if "final_aleatoric" in params:
+        if "final_aleatoric" in params or self.is_ssn:
             params.pop("final", None)
         return params
 
@@ -165,7 +175,12 @@ class Experiment:
 
     def _objective(self, out, target: torch.Tensor,
                    generator: Optional[torch.Generator]) -> torch.Tensor:
-        """The loss of a forward's output; losses reduce in float32."""
+        """The loss of a forward's output (logits, (mu, s) or the SSN's
+        distribution); losses reduce in float32."""
+        if self.is_ssn:
+            return L.ssn_mc_loglikelihood_loss(
+                self._logit_samples(out, target.shape, generator), target,
+                ignore_index=self.ignore_index)
         if self.aleatoric_loss:
             mu, s = (_channel_first(t.to(torch.float32)) for t in out)
             return L.aleatoric_sampling_loss(
@@ -174,40 +189,85 @@ class Experiment:
         return L.dice_ce_loss(_channel_first(out.to(torch.float32)), target,
                               ignore_index=self.ignore_index)
 
+    def _logit_samples(self, dist, target_shape,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+        """``n_aleatoric_samples`` draws of the SSN's distribution (in
+        float32) as (S, B, C, *spatial) logits."""
+        samples = dist.rsample(generator, self.n_aleatoric_samples)
+        return samples.reshape(
+            (self.n_aleatoric_samples, target_shape[0], self.num_classes)
+            + tuple(target_shape[1:]))
+
+    def forward(self, params, data: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                pretrain: bool = False):
+        """The training forward of ``data`` under ``params`` (both already
+        in the compute type): a dropout model first draws the step's keep
+        masks from ``generator``."""
+        masks = (draw_keep_masks(single_member_tree(params),
+                                 tuple(data.shape), generator, data.device)
+                 if self.has_dropout else None)
+        if self.is_ssn:
+            return ssn_train_forward(params, data, self.num_classes,
+                                     self.rank, self.epsilon,
+                                     mean_only=pretrain, keep_masks=masks)
+        return train_forward(params, data, keep_masks=masks)
+
     def loss(self, params, batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             pretrain: bool = False) -> torch.Tensor:
         """The training loss of ``batch`` (``data`` (B, D, H, W, 1) float,
-        ``seg`` (B, D, H, W) integer, on the experiment's device)."""
+        ``seg`` (B, D, H, W) integer, on the experiment's device);
+        ``pretrain``: the SSN's mean-only objective."""
         p, data = self._cast(params, batch["data"])
-        return self._objective(train_forward(p, data), batch["seg"].long(),
-                               generator)
+        return self._objective(self.forward(p, data, generator, pretrain),
+                               batch["seg"].long(), generator)
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   pretrain: bool = False
                    ) -> Tuple[TrainState, torch.Tensor]:
         """One update of ``state`` in place; returns it and the loss."""
         state.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(state.params, batch, generator)
+        loss = self.loss(state.params, batch, generator, pretrain)
         loss.backward()
+        leaves = tree_leaves(state.params)
+        for leaf in leaves:
+            if leaf.grad is None:  # unused this step: jax.grad gives 0
+                leaf.grad = torch.zeros_like(leaf)
         if self.gradient_clip_val is not None:
-            optim.clip_grads_by_global_norm(tree_leaves(state.params),
-                                            self.gradient_clip_val)
+            optim.clip_grads_by_global_norm(leaves, self.gradient_clip_val)
         state.optimizer.step()
         state.step += 1
         return state, loss.detach()
 
     def eval_apply(self, params, data: torch.Tensor):
-        """The gradient-free forward of validation: logits, or (mu, s)."""
+        """The gradient-free, dropout-free forward of validation: logits,
+        (mu, s), or the SSN's distribution."""
         with torch.no_grad():
             p, data = self._cast(params, data)
+            if self.is_ssn:
+                return ssn_train_forward(p, data, self.num_classes,
+                                         self.rank, self.epsilon,
+                                         trainable=False)
             return eval_forward(p, data)
 
     @torch.no_grad()
     def val_step(self, params, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None
                  ) -> Dict[str, torch.Tensor]:
+        """Loss and micro Dice of a validation batch; the SSN's Dice is the
+        mean over its samples' argmax (``val_step``, :332-358)."""
         target = batch["seg"].long()
         out = self.eval_apply(params, batch["data"])
+        if self.is_ssn:
+            samples = self._logit_samples(out, target.shape, generator)
+            loss = L.ssn_mc_loglikelihood_loss(
+                samples, target, ignore_index=self.ignore_index)
+            dice = torch.stack([
+                M.dice_score(labels, target, ignore_index=self.ignore_index)
+                for labels in torch.argmax(samples, dim=2)]).mean()
+            return {"val_loss": loss, "val_dice": dice}
         loss = self._objective(out, target, generator)
         scores = out[0] if self.aleatoric_loss else out
         dice = M.dice_score(_channel_first(scores), target,

@@ -57,6 +57,9 @@ def _log_val_image(logger, experiment, params, batch, step: int) -> None:
         out = experiment.eval_apply(params, data)
         if isinstance(out, tuple):
             out = out[0]
+        if hasattr(out, "rsample"):  # the SSN's distribution: its mean
+            out = out.mean.reshape((1, experiment.num_classes)
+                                   + tuple(data.shape[1:4])).movedim(1, -1)
         pred = torch.argmax(out, dim=-1)[0].cpu().numpy()
         img = data[0].cpu().numpy()
         mid = img.shape[0] // 2
@@ -141,7 +144,8 @@ def fit(cfg: Config, max_steps_override: Optional[int] = None,
         start_epoch = int(payload.get("epoch", -1)) + 1
         print(f"Resumed from {resume_from} at epoch {start_epoch}, "
               f"step {global_step}")
-    # the aleatoric objective's normals
+    # every draw of a step, in the JAX step's key order: the dropout
+    # masks, then the SSN's or the aleatoric objective's normals
     generator = torch.Generator(device=device).manual_seed(seed)
 
     max_epochs = int(cfg.get("max_epochs", 1))
@@ -156,13 +160,15 @@ def fit(cfg: Config, max_steps_override: Optional[int] = None,
 
     t_start = time.time()
     for epoch in range(start_epoch, max_epochs):
+        # the SSN pretrains its mean for the first pretrain_epochs
+        pretrain = experiment.is_ssn and epoch < experiment.pretrain_epochs
         epoch_losses = []
         for batch in train_loader:
             if schedule.kind == "polynomial":
                 optim.set_learning_rate(state.optimizer,
                                         schedule.value(global_step))
             state, loss = experiment.train_step(
-                state, _device_batch(batch, device), generator)
+                state, _device_batch(batch, device), generator, pretrain)
             epoch_losses.append(loss)
             global_step += 1
             if max_steps_override and global_step >= max_steps_override:
