@@ -14,7 +14,8 @@ Phases, each of which raises on failure:
    kernel on the aleatoric path;
 3. hold K1 against its plain PyTorch version on the card, in float32
    and bfloat16, over every fusion the main path uses and every regime
-   of ``conv3d.plan`` (each case checks that its regime launched);
+   of ``conv3d.plan`` (each case checks that its regime launched), and
+   over all 18 convs of the AL loop's test_3d (B = 1, G = 2 and 1);
 4. hold K2 against its plain version: the probability form on a stack
    with exact zeros (contiguous and channels-last), the logits form in
    float32 and bfloat16;
@@ -47,13 +48,14 @@ Phases, each of which raises on failure:
    steps; the 5 members written as checkpoints;
 8d. the sliding-window ``test_3d`` CLI on those checkpoints at f32 and
    bf16: the ``Case_1`` validation split (64^3, one window a volume) and
-   4 volumes of 128^3 (8 windows each) at ``--test_batch_size 3``; each
+   2 volumes of 128^3 (8 windows each) at ``--test_batch_size 3``; each
    output tree checked file by file, 18 K1 launches counted per chunk,
    the 128^3 f32 run held against the plain path (per-member UNet3D
    modules through the same windowing and carrier);
-8e. ``SlidingWindowEngine`` with the aleatoric members of phase 7 over the
-   128^3 volumes at f32, held against the plain path given the same
-   normals; the engine's windows and volumes per second at f32 and bf16,
+8e. ``SlidingWindowEngine`` with the aleatoric members of phase 7 over 2
+   of the 128^3 volumes at f32, held against the plain path given the same
+   normals; the engine's windows and volumes per second at f32 and bf16
+   over all 4,
    and a profile of one 12-window chunk;
 8f. the MC-dropout path: 5 dropout members (random weights) through
    ``make_dropout_scorer`` with 10 passes a batch of 32 (18 K1 launches a
@@ -74,8 +76,9 @@ Phases, each of which raises on failure:
    ``--n_pred 10``, ``-tta`` on the deterministic set and on the dropout
    set, and the SSN set; launches counted, each JSON against its scorer;
 8j. the test_3d CLI on the Case_1 validation split at f32: ``-tta`` on
-   the members of 8c, ``--n_pred 4`` on a dropout checkpoint and on one
-   SSN checkpoint, each tree checked file by file and its launches
+   the members of 8c over 2 of its volumes, ``--n_pred 4`` on a dropout
+   checkpoint and on one SSN checkpoint, each tree checked file by file
+   and its launches
    counted; the engine's windows/s under ``-tta``;
 8k. dropout and SSN training at the published widths of
    ``dropout_config`` and ``ssn_config`` over a Case_1 made by the
@@ -92,7 +95,23 @@ Phases, each of which raises on failure:
    datamodule makes its own splits from id_ood.csv) and ``augment=True``
    for one epoch on Case_1; each step timed (median and spread), its
    peak memory and one profiled step (device time, idle share, top
-   device ops). It runs last; its launches join the kernels line;
+   device ops); its launches join the kernels line;
+8l. the evaluation test beds and the active-learning loop at the widths
+   of ``softmax_config_lidc`` and ``eval_config_lidc`` (bf16): a
+   synthetic 60-nodule LIDC tree; the first cycle (2 seeds, one epoch
+   each, through the training CLI; test_3d on their Ensemble and on
+   Softmax over val, id, ood and unlabeled; the same runs over val in
+   float32 held against the plain path); the 8 evaluation tasks
+   (threshold, aggregation, OoD detection, failure detection,
+   calibration, ambiguity modeling, both split generators), each timed
+   with its patch aggregations and Platt fits, their JSONs and split
+   files checked, the aggregation once more with the box filter on the
+   card held against the host's float64 path; the
+   second cycle (``al_driver``'s dry run, then the 5 runs that
+   al_improvement reads through ``al_driver``, each with its test_3d over
+   ood moved into al_improvement's layout) and al_improvement; every
+   run's launches counted, the steps timed. It runs last; its launches
+   join the kernels line;
 9. time each kernel at its path's shape beside its bound, its plain
    version and a library yardstick (K3: the stock-torch sampling loop,
    and its SFU floor, computed at the card's maximum SM clock; K2: both
@@ -144,6 +163,9 @@ LIDC_DATAMODULE = {"dataset_name": "LIDC-IDRI", "shift_feature": "texture",
 # float32 CUDA-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# the script's start, for its total time
+T_START = time.perf_counter()
 
 # the per-conv table and the profiler's table, too long for the log
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -306,6 +328,35 @@ K1_CASES = [
     ("dropout B=32 8^3, 32->64, stats", 32, 8, 8, 8, 5, 32, 0, 64, False,
      "none", True, "tile8"),
 ]
+# UNet3D f 8's 18 convs at 64^3 in forward order: (D, Cin1, Cin2, Cout,
+# prologue, activation, stats, the bf16 regime)
+UNET3D_F8_CONVS = [
+    (64, 1, 0, 8, False, "none", True, "cin1"),
+    (64, 8, 0, 8, True, "none", True, "shallow"),
+    (32, 8, 0, 16, True, "none", True, "shallow"),
+    (32, 16, 0, 16, True, "none", True, "shallow"),
+    (16, 16, 0, 32, True, "none", True, "tile16"),
+    (16, 32, 0, 32, True, "none", True, "tile16"),
+    (8, 32, 0, 64, True, "none", True, "tile8"),
+    (8, 64, 0, 64, True, "none", True, "tile8"),
+    (4, 64, 0, 128, True, "relu", False, "tile4"),
+    (4, 128, 0, 128, False, "relu", False, "tile4"),
+    (8, 64, 64, 64, True, "leaky", False, "tile8"),
+    (8, 64, 0, 64, False, "leaky", False, "tile8"),
+    (16, 32, 32, 32, True, "leaky", False, "tile16"),
+    (16, 32, 0, 32, False, "leaky", False, "tile16"),
+    (32, 16, 16, 16, True, "leaky", False, "tile16"),
+    (32, 16, 0, 16, False, "leaky", False, "shallow"),
+    (64, 8, 8, 8, True, "leaky", False, "shallow"),
+    (64, 8, 0, 8, False, "leaky", False, "shallow"),
+]
+# every conv of the AL loop's test_3d: one 64^3 window a chunk (B = 1), the
+# Ensemble of two members (G = 2) and Softmax (G = 1)
+K1_CASES += [
+    (f"AL test_3d G={g} B=1 {d}^3, {c1}+{c2}->{co}", 1, d, d, d, g, c1, c2,
+     co, pro, act, stats, regime)
+    for g in (2, 1)
+    for d, c1, c2, co, pro, act, stats, regime in UNET3D_F8_CONVS]
 
 # Tolerances, stated with their reasons:
 # - float32 out: atol 1e-4 -- both sides accumulate <= 27*Cin products in
@@ -1428,6 +1479,9 @@ def joint_training_path(root: str, card: str):
 # -- the sliding-window test_3d CLI ---------------------------------------------
 
 BIG, BIG_VOLUMES, TEST3D_CHUNK = 128, 4, 3
+# of those, the volumes that the test_3d CLI runs and the aleatoric engine
+# take (the engine's rate takes all BIG_VOLUMES)
+BIG_CLI_VOLUMES = 2
 # every map the CLI writes for one volume of a 5-member ensemble with 3
 # raters: input, 3 rater masks, 6 label maps (mean + 5), 12 probability
 # maps (mean + 5, 2 classes each) and the 3 C2 maps
@@ -1560,8 +1614,8 @@ def close(got, want, what: str) -> float:
 def test3d_path(ckpts, train_root: str, card: str):
     """``python -m values_tpu_torch.inference.test_3d`` on the jointly
     trained checkpoints, at f32 and bf16: (a) the Case_1 validation split
-    (64^3 volumes, one window each), (b) BIG_VOLUMES volumes of 128^3 by
-    --test_data_dir/--subject_ids at --test_batch_size 3 (chunks of 3, 3
+    (64^3 volumes, one window each), (b) BIG_CLI_VOLUMES volumes of 128^3
+    by --test_data_dir/--subject_ids at --test_batch_size 3 (chunks of 3, 3
     and 2). Each run's tree checked and its launches counted (18 K1 per
     chunk); run (b) at f32 held against the plain path. Returns the root,
     the big volumes' directory and subjects, the CLI seconds and K1's
@@ -1569,18 +1623,18 @@ def test3d_path(ckpts, train_root: str, card: str):
     import pickle as pkl
     import torch
     from values_tpu_torch.inference import test_3d
-    from values_tpu_torch.inference.carrier import VolumeCarrier
     from values_tpu_torch.ops.kernels.conv3d import conv3d_fused
-    from values_tpu_torch.training.checkpoint import load_any_checkpoint
     root = tempfile.mkdtemp(dir=OUT_DIR, prefix="test3d_")
     big_dir = os.path.join(root, "big")
     subjects = write_big_volumes(big_dir)
     with open(os.path.join(train_root, "Case_1", "splits.pkl"), "rb") as f:
         val = sorted(pkl.load(f)[0]["val"])
+    cli_subjects = subjects[:BIG_CLI_VOLUMES]
     sets = {"val": (["--test_split", "val"], val, len(val), "val"),
-            "128": (["--test_data_dir", big_dir, "--subject_ids", *subjects,
-                     "--test_batch_size", str(TEST3D_CHUNK)], subjects,
-                    BIG_VOLUMES * -(-8 // TEST3D_CHUNK), "id")}
+            "128": (["--test_data_dir", big_dir, "--subject_ids",
+                     *cli_subjects, "--test_batch_size", str(TEST3D_CHUNK)],
+                    cli_subjects, BIG_CLI_VOLUMES * -(-8 // TEST3D_CHUNK),
+                    "id")}
     seconds, runs, held = {}, {}, None
     for dtype in ("float32", "bfloat16"):
         for name, (extra, subj, chunks, split) in sets.items():
@@ -1618,25 +1672,43 @@ def test3d_path(ckpts, train_root: str, card: str):
                 shutil.rmtree(save)
 
     # run (b) at f32 against the plain path, volume by volume
-    nets = member_modules([load_any_checkpoint(p)[1] for p in ckpts])
-    worst = {}
-    for path, value in held.data.items():
-        sums, _ = plain_volume_sums(nets, np.load(path), TEST3D_CHUNK)
-        plain = VolumeCarrier(held.device)
-        plain.add_volume(path, None, value["data"], None, sums,
-                         value["num_predictions"][0])
-        plain.compute_uncertainty()
-        for key in ("softmax_pred", "pred_entropy", "aleatoric_uncertainty",
-                    "epistemic_uncertainty"):
-            worst[key] = max(worst.get(key, 0.0), close(
-                value[key], plain.data[path][key], f"test_3d f32 {key}"))
+    worst = hold_against_plain(held, ckpts, "test_3d f32")
     log("test_3d 128^3 f32 against the plain path (per-member UNet3D "
         "modules through the same windowing and carrier): max_abs_err "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
         + f"; card {card}")
-    del held, nets
+    del held
     torch.cuda.empty_cache()
     return root, big_dir, subjects, seconds, runs
+
+
+def hold_against_plain(carrier, ckpts, what: str) -> dict:
+    """Each volume of a float32 test_3d run against the plain path:
+    per-member UNet3D modules of ``ckpts`` through the same windowing and
+    a carrier of their own; the softmax sums and every C2 map the run
+    computed, within atol + rtol 1e-3. Returns the largest error of
+    each."""
+    import torch
+    from values_tpu_torch.inference.carrier import VolumeCarrier
+    from values_tpu_torch.training.checkpoint import load_any_checkpoint
+    nets = member_modules([load_any_checkpoint(p)[1] for p in ckpts])
+    keys = ("softmax_pred", "pred_entropy", "aleatoric_uncertainty",
+            "epistemic_uncertainty")
+    worst = {}
+    for path, value in carrier.data.items():
+        sums, _ = plain_volume_sums(nets, np.load(path), TEST3D_CHUNK)
+        plain = VolumeCarrier(carrier.device)
+        plain.add_volume(path, None, value["data"], None, sums,
+                         value["num_predictions"][0])
+        if "pred_entropy" in value:
+            plain.compute_uncertainty()
+        for key in keys:
+            if key in value:
+                worst[key] = max(worst.get(key, 0.0), close(
+                    value[key], plain.data[path][key], f"{what} {key}"))
+    del nets
+    torch.cuda.empty_cache()
+    return worst
 
 
 def aleatoric_engine_path(big_dir: str, subjects, card: str):
@@ -2185,13 +2257,18 @@ def stochastic_cli_path(card: str):
     return out
 
 
+# the val volumes of the -tta test_3d run (80 samples and 251 maps each)
+TTA_CLI_VOLUMES = 2
+
+
 def test3d_modes_path(joint_ckpts, train_root: str, card: str):
     """``python -m values_tpu_torch.inference.test_3d`` over the Case_1
     validation split (64^3, one window a volume) at f32: ``-tta`` on the
-    jointly trained members, ``--n_pred 4`` on a dropout copy of member
-    0, and ``--n_pred 4`` on one SSN checkpoint; each tree checked file by
-    file and each run's launches counted; then the engine's windows/s
-    under ``-tta`` (the median of 3 passes over the split)."""
+    jointly trained members over TTA_CLI_VOLUMES of its volumes (by
+    --test_data_dir/--subject_ids), ``--n_pred 4`` on a dropout copy of
+    member 0, and ``--n_pred 4`` on one SSN checkpoint; each tree checked
+    file by file and each run's launches counted; then the engine's
+    windows/s under ``-tta`` (the median of 3 passes over the split)."""
     import pickle as pkl
     import torch
     from values_tpu_torch.data.samples import get_val_test_data_samples
@@ -2214,11 +2291,14 @@ def test3d_modes_path(joint_ckpts, train_root: str, card: str):
             "_target_": "values_tpu.models.ssn_unet3d.SsnUNet3D",
             "num_classes": CLASSES, "initial_filter_size": FILTERS,
             "rank": SSN_RANK, "epsilon": 1e-5}))
-    runs = {"-tta": (joint_ckpts, ["-tta"], 16 * N_MEMBERS, 16),
-            "dropout --n_pred 4": ([dropout], ["--n_pred", "4"], 4, 4),
-            "SSN --n_pred 4": ([ssn], ["--n_pred", "4"], 4, 1)}
+    tta_subjects = val[:TTA_CLI_VOLUMES]
+    runs = {"-tta": (joint_ckpts, ["-tta", "--test_data_dir", os.path.join(
+                train_root, "Case_1", "preprocessed"), "--subject_ids",
+                *tta_subjects], 16 * N_MEMBERS, 16, tta_subjects),
+            "dropout --n_pred 4": ([dropout], ["--n_pred", "4"], 4, 4, val),
+            "SSN --n_pred 4": ([ssn], ["--n_pred", "4"], 4, 1, val)}
     out = {}
-    for name, (paths, flags, samples, forwards) in runs.items():
+    for name, (paths, flags, samples, forwards, subjects) in runs.items():
         save = os.path.join(root, name.split()[0].strip("-"))
         reset_launches()
         t0 = time.perf_counter()
@@ -2228,7 +2308,7 @@ def test3d_modes_path(joint_ckpts, train_root: str, card: str):
         seconds = time.perf_counter() - t0
         launches = read_launches()
         expect_launches(launches, {
-            "conv3d_fused": 18 * forwards * len(val),
+            "conv3d_fused": 18 * forwards * len(subjects),
             "conv3d_fused_train": 0, "fused_entropy": 0,
             "sampled_softmax_stats": 0}, f"test_3d {name}")
         if any(v["softmax_pred"].shape[0] != samples
@@ -2237,12 +2317,12 @@ def test3d_modes_path(joint_ckpts, train_root: str, card: str):
         check_result_tree(os.path.join(save, hparams["exp_name"],
                                        "test_results",
                                        str(hparams["version"]), "val"),
-                          val, n_preds=samples)
+                          subjects, n_preds=samples)
         out[f"test_3d {name}"] = launches["conv3d_fused"]
-        log(f"test_3d CLI {name} (val split, {len(val)} volumes of "
+        log(f"test_3d CLI {name} (val split, {len(subjects)} volumes of "
             f"{PATCH}^3, {samples} samples each), f32: {seconds:.2f} s "
             f"(checkpoint reading, volume loading and "
-            f"{len(val) * (1 + RATERS + (1 + samples) * (1 + CLASSES) + 3)}"
+            f"{len(subjects) * (4 + RATERS + (1 + samples) * (1 + CLASSES))}"
             f" nii.gz maps included); launches {json.dumps(launches)}; "
             f"card {card}")
         shutil.rmtree(save)
@@ -2741,6 +2821,545 @@ def dropout_ssn_training_path(card: str) -> dict:
     out["launches"]["augment=True CLI"] = launches
     shutil.rmtree(root)
     out["lidc"] = lidc_path(card)
+    return out
+
+
+# -- evaluation and active learning ------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+AL_SEEDS = (123, 124)     # the first cycle: two members, one Ensemble
+AL_SPLITS = ("val", "id", "ood", "unlabeled")
+# eval_config_lidc's version name "{shift}_fold{fold}_seed{seed}" at seed 123
+AL_VERSION = "texture_fold0_seed123"
+EVAL_TASKS = ("threshold", "aggregation", "ood_detection",
+              "failure_detection", "calibration", "ambiguity_modeling",
+              "second_cycle_splits", "second_cycle_splits_random")
+# the second-cycle runs that the Ensemble's al_improvement reads: its
+# non-aleatoric uncertainties x aggregations, and the random baseline
+AL_QUERIES = [(unc, agg) for unc in ("predictive_uncertainty",
+                                     "epistemic_uncertainty")
+              for agg in ("patch_level", "threshold")] + [("random",
+                                                           "random")]
+# the card's float32 box filter against the host's float64 convolution:
+# its cumulative sums round each box to under 1e-6 of its value (160
+# maps of this phase on an H100); the limit leaves a tenfold margin
+BOX_RTOL = 1e-5
+
+
+def eval_overrides(first: str, second: str, splits: str, models) -> list:
+    """eval_config_lidc cut to one shift, one seed and ``models``, over
+    the results under ``first`` and ``second`` and the splits under
+    ``splits``."""
+    return [f"base_path={first}", f"second_cycle_path={second}",
+            "LIDC.iter_params.shift=[texture]",
+            f"LIDC.iter_params.pred_model=[{', '.join(models)}]",
+            "LIDC.iter_params.seed=['123']"] + [
+        f"task_params.{task}.function.base_splits_path={splits}"
+        for task in ("ood_detection", "second_cycle_splits",
+                     "second_cycle_splits_random")]
+
+
+def run_eval(overrides: list, tasks) -> float:
+    """The evaluation CLI's driver on eval_config_lidc composed with
+    ``overrides``, over ``tasks`` (the CLI cannot select them: ``tasks=``
+    names the config group ``tasks/``); returns its seconds. A sample the
+    OoD rule cannot place fails the run."""
+    import io
+    import warnings
+    from values_tpu_torch.config import compose
+    from values_tpu_torch.evaluation import EvalExperiments
+    cfg = compose(os.path.join(REPO, "configs", "evaluation"),
+                  "eval_config_lidc", overrides)
+    cfg["tasks"] = list(tasks)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        EvalExperiments(cfg).analyse()
+    if "Could not find" in out.getvalue():
+        raise AssertionError(f"evaluation: {out.getvalue()}")
+    return time.perf_counter() - t0
+
+
+def al_test_3d(ckpts, data: str, save_dir: str, exp_name: str,
+               split: str, dtype: str = "bfloat16"):
+    """The test_3d CLI over one LIDC split, 18 K1 launches per volume (one
+    64^3 window, one chunk each), K1's f32 regime alone in float32 and
+    never in bfloat16; returns (seconds, launches, volumes, mean dice,
+    the carrier)."""
+    from values_tpu_torch.inference import test_3d
+    from values_tpu_torch.ops.kernels.conv3d import conv3d_fused
+    what = f"test_3d {exp_name} {split} {dtype}"
+    regimes = dict(conv3d_fused.regime_launches)
+    reset_launches()
+    t0 = time.perf_counter()
+    carrier = test_3d.run_test(test_3d.test_cli(
+        ["--checkpoint_paths", *ckpts, "-i", data, "--save_dir", save_dir,
+         "--exp_name", exp_name, "--test_split", split, "--dtype", dtype,
+         "--device", "cuda"]))
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    n = len(carrier.data)
+    expect_launches(launches, {"conv3d_fused": 18 * n,
+                               "conv3d_fused_train": 0, "fused_entropy": 0,
+                               "sampled_softmax_stats": 0},
+                    f"{what} ({n} volumes)")
+    expect_f32_regime(regimes_since(regimes), dtype == "float32", what)
+    dice = [v["metrics"]["dice"] for v in carrier.data.values()]
+    if not n or not np.isfinite(dice).all():
+        raise AssertionError(f"{what}: dice {dice}")
+    return seconds, launches, n, float(np.mean(dice)), carrier
+
+
+def lidc_epoch_launches(splits_file: str) -> dict:
+    """One epoch of softmax_config_lidc on a splits file: 35 K1 a step
+    (17 of them K1b's dx), 18 a validation forward and 18 for the panel."""
+    from values_tpu_torch.core.io import load_pickle
+    fold = load_pickle(splits_file)[0]
+    steps = -(-len(fold["train"]) // TRAIN_BATCH)
+    return {"conv3d_fused": (K1_FORWARD + K1_DX) * steps
+            + K1_FORWARD * (len(fold["val"]) + 1),
+            "conv3d_fused_train": K1_DX * steps, "fused_entropy": 0,
+            "sampled_softmax_stats": 0}
+
+
+def _metric_leaves(node, key):
+    """Every value under ``key`` in a task JSON."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            if k == key and not isinstance(v, dict):
+                yield v
+            else:
+                yield from _metric_leaves(v, key)
+
+
+def check_task_results(first: str, splits: str) -> dict:
+    """The task JSONs and split files: thresholds and Platt parameters
+    finite; AUROC, detection rate and ACE in [0, 1]; AURC and E-AURC
+    finite; NCC in [-1, 1], NaN only where a map has zero variance (R3);
+    each queried training split half the unlabeled pool larger. Returns
+    the means, for the log."""
+    from values_tpu_torch.core.io import load_pickle
+    from values_tpu_torch.evaluation import ExperimentDataloader
+    from values_tpu_torch.evaluation.experiment_version import (
+        ExperimentVersion)
+
+    def load(*parts):
+        with open(os.path.join(*parts)) as f:
+            return json.load(f)
+
+    out = {}
+    thresholds = load(first, "threshold_analysis.json")
+    if not all(np.isfinite(v) for d in thresholds.values()
+               for v in d.values()):
+        raise AssertionError(f"thresholds: {thresholds}")
+    out["thresholds"] = thresholds["Mean"]
+    for model in ("Softmax", "Ensemble"):
+        exp = os.path.join(first, model, "test_results", AL_VERSION)
+        platt = load(exp, "platt_scale_params.json")
+        ood = load(exp, "ood_detection.json")
+        rates = list(_metric_leaves(ood, "ood_detection_rate"))
+        aurocs = list(_metric_leaves(ood, "auroc"))
+        if not platt or not all(np.isfinite(v) for d in platt.values()
+                                for v in d.values()) or not all(
+                0 <= v <= 1 for v in rates + aurocs):
+            raise AssertionError(f"{model}: Platt {platt}, OoD {ood}")
+        out[model] = {"auroc": aurocs, "ood_detection_rate": rates}
+        for split in ("id", "ood"):
+            fd = load(exp, split, "failure_detection.json")
+            aces = list(_metric_leaves(load(exp, split, "calibration.json"),
+                                       "ace"))
+            ncc = load(exp, split, "ambiguity_modeling.json")
+            aurc = list(_metric_leaves(fd, "aurc")) + list(
+                _metric_leaves(fd, "eaurc"))
+            if not np.isfinite(aurc).all() or not all(0 <= v <= 1
+                                                      for v in aces):
+                raise AssertionError(f"{model} {split}: {fd}, ACE {aces}")
+            unc_types = list(ncc["mean"])
+            version = ExperimentVersion(
+                first, "{shift}_fold{fold}_seed{seed}", model, ".nii.gz",
+                ".nii.gz", unc_types, [], 4, shift="texture", fold=0,
+                seed="123")
+            dl = ExperimentDataloader(version, split)
+            for unc, m in ncc["mean"].items():
+                if np.isnan(m["metrics"]["ncc"]) and not any(
+                        np.isnan(v[unc]["metrics"]["ncc"])
+                        for k, v in ncc.items() if k != "mean"):
+                    raise AssertionError(f"NCC mean NaN: {model} {split}")
+            for image_id, uncs in ncc.items():
+                for unc, m in uncs.items():
+                    v = m["metrics"]["ncc"]
+                    if np.isnan(v) and image_id != "mean":
+                        flat = (np.var(dl.get_gt_unc_map(image_id)) == 0
+                                or np.var(dl.get_unc_map(image_id, unc)) == 0)
+                        if not flat:
+                            raise AssertionError(f"NCC NaN without R3: {model}"
+                                                 f" {split} {image_id} {unc}")
+                    elif not np.isnan(v) and not -1 <= v <= 1:
+                        raise AssertionError(f"NCC {v}: {model} {split} "
+                                             f"{image_id} {unc}")
+            out[model][split] = {
+                "aurc": float(np.mean(list(_metric_leaves(fd, "aurc")))),
+                "ace": [m["metrics"]["ace"] for m in load(
+                    exp, split, "calibration.json")["mean"].values()],
+                "ncc": [m["metrics"]["ncc"] for m in ncc["mean"].values()]}
+    first_fold = load_pickle(os.path.join(splits, "texture", "firstCycle",
+                                          "splits.pkl"))[0]
+    pool = (len(first_fold["id_unlabeled_pool"])
+            + len(first_fold["ood_unlabeled_pool"]))
+    files = sorted(os.path.relpath(os.path.join(d, f), splits)
+                   for d, _, fs in os.walk(os.path.join(splits, "texture",
+                                                        "secondCycle"))
+                   for f in fs)
+    for rel in files:
+        fold = load_pickle(os.path.join(splits, rel))[0]
+        if (len(fold["train"]) != len(first_fold["train"]) + pool // 2
+                or len(fold["id_unlabeled_pool"])
+                + len(fold["ood_unlabeled_pool"]) != pool - pool // 2):
+            raise AssertionError(f"{rel}: train {len(fold['train'])}")
+    out["split_files"] = files
+    return out
+
+
+@contextlib.contextmanager
+def watched(module, name: str):
+    """Record every call of ``module.name`` while the block runs: (ms on
+    the host clock, the device type of its first argument or None)."""
+    fn = getattr(module, name)
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            device = getattr(args[0], "device", None) if args else None
+            calls.append(((time.perf_counter() - t0) * 1e3,
+                          getattr(device, "type", None)))
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def compare_device_aggregation(host: dict, device: dict, unc_map,
+                               card_calls: int) -> dict:
+    """The use_device run's JSONs against the host's, keyed by (model,
+    split, unc): every patch score within BOX_RTOL of the host's float64
+    one; the same bounding box, or where float32 rounding broke a
+    near-tie, a box whose float64 sum on the host's map (``unc_map(key,
+    image)``) is within BOX_RTOL of the host's box's; the other
+    aggregations identical; one box filter on a card tensor per map."""
+    worst = {"abs": 0.0, "rel": 0.0, "maps": 0, "ties": 0}
+    for key, images in host.items():
+        for image, aggs in images.items():
+            got = device[key][image]
+            for agg, value in aggs.items():
+                if agg != "patch_level":
+                    if got[agg] != value:
+                        raise AssertionError(f"{key} {image} {agg}")
+                    continue
+                a, b = got[agg]["max_score"], value["max_score"]
+                err = abs(a - b)
+                if err > BOX_RTOL * abs(b):
+                    raise AssertionError(f"box filter on the card: {key} "
+                                         f"{image}: {a} against {b}")
+                if got[agg]["bounding_box"] != value["bounding_box"]:
+                    heat = unc_map(key, image)
+                    card, ref = (
+                        float(heat[tuple(slice(*side) for side in box)].sum(
+                            dtype=np.float64))
+                        for box in (got[agg]["bounding_box"],
+                                    value["bounding_box"]))
+                    if abs(card - ref) > BOX_RTOL * abs(ref):
+                        raise AssertionError(
+                            f"box filter on the card: {key} {image}: box "
+                            f"{got[agg]['bounding_box']} against "
+                            f"{value['bounding_box']}")
+                    worst["ties"] += 1
+                worst["abs"] = max(worst["abs"], err)
+                worst["rel"] = max(worst["rel"], err / max(abs(b), 1e-30))
+                worst["maps"] += 1
+    if card_calls != worst["maps"]:
+        raise AssertionError(f"use_device: {card_calls} box filters on the "
+                             f"card for {worst['maps']} maps")
+    return worst
+
+
+def box_filter_card_ms(path: str) -> float:
+    """The box filter alone on one 64^3 map already on the card (CUDA
+    events)."""
+    import torch
+    from values_tpu_torch.core import nifti
+    from values_tpu_torch.ops.aggregation import box_filter_sum
+    image, _ = nifti.load(path)
+    x = torch.from_numpy(np.ascontiguousarray(image, np.float32)).cuda()
+    return cuda_ms(lambda: box_filter_sum(x, (10,) * 3, range(3)))
+
+
+def al_unc_map(first: str):
+    """(model, split, unc), image file -> that uncertainty map under
+    ``first``."""
+    from values_tpu_torch.evaluation import ExperimentDataloader
+    from values_tpu_torch.evaluation.experiment_version import (
+        ExperimentVersion)
+
+    def load(key, image):
+        model, split, unc = key
+        dl = ExperimentDataloader(ExperimentVersion(
+            first, "{shift}_fold{fold}_seed{seed}", model, ".nii.gz",
+            ".nii.gz", [unc], [], 4, shift="texture", fold=0, seed="123"),
+            split)
+        return dl.get_unc_map(image[:-len(".nii.gz")], unc)
+    return load
+
+
+def al_path(card: str) -> dict:
+    """The active-learning loop on the card (eval_config_lidc,
+    softmax_config_lidc at published widths, bf16): a synthetic LIDC
+    tree; the first cycle (2 seeds x 1 epoch through the training CLI,
+    test_3d on the Ensemble of both and on Softmax over val, id, ood and
+    unlabeled, and over val in float32 against the plain path); the
+    evaluation CLI's 8 tasks, the aggregation once more on the card; the
+    second cycle (al_driver's dry run, then the 5 runs
+    that al_improvement reads, each through al_driver, and its test_3d
+    over ood, moved into al_improvement's layout); al_improvement.
+    Every run's launches counted, every task file checked."""
+    import io
+    from pathlib import Path
+    import torch
+    from values_tpu_torch.core.io import load_pickle
+    from values_tpu_torch.evaluation import al_driver
+    from values_tpu_torch.evaluation import (
+        aggregate_uncertainties as aggregate_module)
+    from values_tpu_torch.evaluation.metrics import ace
+    from values_tpu_torch.training import experiment as experiment_module
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(dir=OUT_DIR, prefix="al_")
+    data, first, second, splits = (os.path.join(root, d) for d in (
+        "LIDC", "FirstCycle", "SecondCycle", "splits"))
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    counts = write_lidc(data)
+    write_s = time.perf_counter() - t0
+    out = {"launches": {}, "seconds": {"write": write_s}}
+
+    # step times of every training run (the cost of a synchronize a step)
+    step_ms = []
+    train_step = experiment_module.Experiment.train_step
+
+    def timed_train_step(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = train_step(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return result
+
+    experiment_module.Experiment.train_step = timed_train_step
+    try:
+        # first cycle
+        ckpts = []
+        for seed in AL_SEEDS:
+            ckpt, seconds, launches, _ = run_config_cli(
+                "softmax_config_lidc", data, f"texture_fold0_seed{seed}",
+                ["+precision=bf16", f"seed={seed}"], card)
+            expect_launches(launches, lidc_epoch_launches(
+                os.path.join(data, "splits_texture.pkl")),
+                f"first cycle, seed {seed}")
+            out["launches"][f"AL first cycle seed {seed} CLI"] = launches
+            ckpts.append(ckpt)
+        first_steps = list(step_ms)
+        os.makedirs(os.path.join(splits, "texture", "firstCycle"))
+        shutil.copy(os.path.join(data, "splits_texture.pkl"),
+                    os.path.join(splits, "texture", "firstCycle",
+                                 "splits.pkl"))
+        t0 = time.perf_counter()
+        test_runs = {}
+        for exp_name, members in (("Ensemble", ckpts),
+                                  ("Softmax", ckpts[:1])):
+            for split in AL_SPLITS:
+                test_runs[exp_name, split] = al_test_3d(
+                    members, data, first, exp_name, split)[:4]
+                out["launches"][f"AL test_3d {exp_name} {split}"] = \
+                    test_runs[exp_name, split][1]
+        out["seconds"]["first test_3d"] = time.perf_counter() - t0
+        log("AL first cycle test_3d (bf16): " + "; ".join(
+            f"{e} {s} {n} volumes {sec:.2f} s, dice {d:.4f}"
+            for (e, s), (sec, _, n, d) in test_runs.items())
+            + f"; card {card}")
+        # the same runs' shapes (G = 2 and 1, B = 1) in float32, every val
+        # volume held against the plain path
+        held = {}
+        for exp_name, members in (("Ensemble", ckpts),
+                                  ("Softmax", ckpts[:1])):
+            checked = os.path.join(root, "f32_check")
+            _, launches, n, _, carrier = al_test_3d(
+                members, data, checked, exp_name, "val", "float32")
+            out["launches"][f"AL test_3d {exp_name} val f32 check"] = \
+                launches
+            held[exp_name] = (n, len(members), hold_against_plain(
+                carrier, members, f"AL test_3d f32 {exp_name}"))
+            del carrier
+            shutil.rmtree(checked)
+        log("AL test_3d f32 over val against the plain path (per-member "
+            "UNet3D modules through the same windowing and carrier): "
+            + "; ".join(f"{e} ({n} volumes, G = {g}) max_abs_err " + ", ".join(
+                f"{k} {v:.3e}" for k, v in worst.items())
+                for e, (n, g, worst) in held.items()) + f"; card {card}")
+
+        # the evaluation CLI, task by task, then the aggregation on the
+        # card; the tasks' own patch aggregations and Platt fits timed
+        models = ("Softmax", "Ensemble")
+        task_s = {}
+        for task in EVAL_TASKS:
+            with watched(aggregate_module, "patch_level_aggregation") as \
+                    host_maps, watched(ace, "_sigmoid_calibration") as fits:
+                task_s[task] = run_eval(eval_overrides(first, second, splits,
+                                                       models), [task])
+            if task == "aggregation":
+                host_ms = [ms for ms, _ in host_maps]
+            if task == "calibration":
+                fit_s = [ms / 1e3 for ms, _ in fits]
+        results = check_task_results(first, splits)
+
+        def aggregated():
+            files = {}
+            for model in models:
+                for split in AL_SPLITS:
+                    d = os.path.join(first, model, "test_results",
+                                     AL_VERSION, split)
+                    for name in sorted(os.listdir(d)):
+                        if name.startswith("aggregated_"):
+                            with open(os.path.join(d, name)) as f:
+                                files[model, split, name[len(
+                                    "aggregated_"):-len(".json")]] = \
+                                    json.load(f)
+            return files
+
+        host_files = aggregated()
+        with watched(aggregate_module, "patch_level_aggregation") as \
+                card_maps, watched(aggregate_module, "box_filter_sum") as \
+                card_boxes:
+            task_s["aggregation, use_device"] = run_eval(
+                eval_overrides(first, second, splits, models)
+                + ["AGG_PATCH_THRESH.function.aggregations.patch_level."
+                   "use_device=true"], ["aggregation"])
+        box_err = compare_device_aggregation(
+            host_files, aggregated(), al_unc_map(first),
+            sum(d == "cuda" for _, d in card_boxes))
+        entropy_dir = os.path.join(first, "Ensemble", "test_results",
+                                   AL_VERSION, "val", "pred_entropy")
+        box_card_ms = box_filter_card_ms(os.path.join(
+            entropy_dir, sorted(os.listdir(entropy_dir))[0]))
+        card_ms = [ms for ms, _ in card_maps]
+        out["seconds"]["tasks"] = task_s
+        log("AL evaluation CLI (eval_config_lidc, texture, seed 123, "
+            "Softmax and Ensemble) seconds per task: " + ", ".join(
+                f"{t} {s:.2f}" for t, s in task_s.items())
+            + f"; thresholds {json.dumps(results['thresholds'])}; "
+            + "; ".join(f"{m}: AUROC {results[m]['auroc']}, detection rate "
+                        f"{results[m]['ood_detection_rate']}, " + ", ".join(
+                            f"{s} AURC {results[m][s]['aurc']:.4f} ACE "
+                            f"{results[m][s]['ace']} NCC {results[m][s]['ncc']}"
+                            for s in ("id", "ood")) for m in models)
+            + f"; {len(results['split_files'])} second-cycle split files; "
+            f"card {card}")
+        log(f"AL box filter on the card against scipy's float64 "
+            f"convolution: {box_err['maps']} maps, max abs err "
+            f"{box_err['abs']:.3e}, max rel err {box_err['rel']:.3e}, "
+            f"{box_err['ties']} bounding boxes moved by a near-tie; a 64^3 "
+            f"map's patch aggregation in the tasks (median, min-max of "
+            f"{len(host_ms)} / {len(card_ms)} maps): host "
+            f"{statistics.median(host_ms):.2f} ms ({min(host_ms):.2f}-"
+            f"{max(host_ms):.2f}), with the card's box filter "
+            f"{statistics.median(card_ms):.2f} ms ({min(card_ms):.2f}-"
+            f"{max(card_ms):.2f}, copies included); the box filter alone "
+            f"{box_card_ms:.3f} ms; the calibration task's {len(fit_s)} "
+            f"Platt fits on {4 * PATCH ** 3} voxel pairs each: median "
+            f"{statistics.median(fit_s):.3f} s ({min(fit_s):.3f}-"
+            f"{max(fit_s):.3f}), {sum(fit_s):.2f} s in all; card {card}")
+
+        # second cycle
+        dry_out = io.StringIO()
+        with contextlib.redirect_stdout(dry_out):
+            dry = al_driver.main(["--splits", splits, "--config",
+                                  "softmax_config_lidc", "--config-dir",
+                                  os.path.join(REPO, "configs"),
+                                  "--dry-run"])
+        if sorted(results["split_files"]) != sorted(
+                os.path.relpath(p, splits) for p in
+                al_driver.discover_second_cycle_splits(splits)) or len(
+                dry) != 11:
+            raise AssertionError(f"al_driver --dry-run: {dry}")
+        second_runs, step_ms[:] = {}, []
+        t0 = time.perf_counter()
+        for unc, agg in AL_QUERIES:
+            parts = (["random", "random"] if unc == "random"
+                     else ["Ensemble", unc, agg])
+            splits_file = os.path.join(splits, "texture", "secondCycle",
+                                       *parts, "splits_seed123.pkl")
+            version = al_driver.version_name_for_splits(Path(splits_file))
+            reset_launches()
+            t_run = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                ckpt = al_driver.train_second_cycle(
+                    "softmax_config_lidc", splits_file, overrides=[
+                        f"data_input_dir={data}",
+                        f"save_dir={os.path.join(root, 'exp2')}",
+                        "max_epochs=1", "+precision=bf16"],
+                    config_dir=os.path.join(REPO, "configs"),
+                    device="cuda")
+            run_s = time.perf_counter() - t_run
+            launches = read_launches()
+            expect_launches(launches, lidc_epoch_launches(splits_file),
+                            f"second cycle {version}")
+            out["launches"][f"AL second cycle {unc} {agg} CLI"] = launches
+            tested = os.path.join(root, "second_tests")
+            sec, t_launches, n, dice, _ = al_test_3d(
+                [ckpt], data, tested, version, "ood")
+            out["launches"][f"AL second cycle test_3d {unc} {agg}"] = \
+                t_launches
+            dest = os.path.join(second, "Ensemble", "test_results", unc,
+                                agg, AL_VERSION)
+            os.makedirs(dest)
+            shutil.move(os.path.join(tested, version, "test_results",
+                                     version, "ood"), dest)
+            second_runs[version] = (run_s, sec, dice)
+        out["seconds"]["second cycle"] = time.perf_counter() - t0
+        second_steps = list(step_ms)
+    finally:
+        experiment_module.Experiment.train_step = train_step
+    task_s["al_improvement"] = run_eval(eval_overrides(
+        first, second, splits, ["Ensemble"]), ["al_improvement"])
+    with open(os.path.join(first, "Ensemble", "test_results", AL_VERSION,
+                           "ood", "al_improvement.json")) as f:
+        improvement = json.load(f)["mean"]
+    values = list(_metric_leaves(improvement, "al_improvement"))
+    if len(values) != 4 or not np.isfinite(values).all():
+        raise AssertionError(f"al_improvement: {improvement}")
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    n_train = len(load_pickle(os.path.join(
+        splits, "texture", "secondCycle", "random", "random",
+        "splits_seed123.pkl"))[0]["train"])
+    out["steps"] = {"first": first_steps, "second": second_steps}
+    # every step's volumes over the steps' summed time
+    out["second_volumes_per_s"] = (len(AL_QUERIES) * n_train * 1e3
+                                   / sum(second_steps))
+    log(f"AL second cycle (5 runs of one epoch, bf16, {n_train} training "
+        "volumes each): " + "; ".join(
+            f"{v} {r:.2f} s, test_3d ood {s:.2f} s, dice {d:.4f}"
+            for v, (r, s, d) in second_runs.items())
+        + f"; steps median {statistics.median(second_steps):.2f} ms (min "
+        f"{min(second_steps):.2f}, max {max(second_steps):.2f}; first cycle "
+        f"median {statistics.median(first_steps):.2f} ms), "
+        f"{out['second_volumes_per_s']:.2f} volumes trained/s over the "
+        f"steps' summed time; al_improvement {json.dumps(improvement)}; "
+        f"LIDC tree {counts['nodules']} nodules in {write_s:.2f} s; the "
+        f"phase {out['seconds']['phase']:.1f} s; card {card}")
+    shutil.rmtree(root)
     return out
 
 
@@ -3441,7 +4060,8 @@ def main() -> int:
         (t3_root, big_dir, big_subjects, t3_seconds,
          t3_launches) = test3d_path(joint_ckpts, train_root, smi)
     with phase("aleatoric engine", smi):
-        ale_engine = aleatoric_engine_path(big_dir, big_subjects, smi)
+        ale_engine = aleatoric_engine_path(
+            big_dir, big_subjects[:BIG_CLI_VOLUMES], smi)
     with phase("test_3d engine timings and profiles", smi):
         engine_rates = engine_throughput(joint_ckpts, big_dir, big_subjects,
                                          smi)
@@ -3554,6 +4174,13 @@ def main() -> int:
                 "conv3d_fused_train"]
         kernels[0]["path_launches"]["softmax_config_lidc CLI"] = trained[
             "lidc"]["launches"]
+    with phase("evaluation and active learning", smi):
+        al = al_path(smi)
+        for run, launches in al["launches"].items():
+            kernels[0]["path_launches"][run] = launches["conv3d_fused"]
+            if launches["conv3d_fused_train"]:
+                kernels[1]["path_launches"][run] = launches[
+                    "conv3d_fused_train"]
     log(f"headline: {vps:.2f} volumes/s deterministic, {a_vps:.2f} "
         f"volumes/s aleatoric ({N_ALEATORIC} samples) (ensemble-{N_MEMBERS},"
         f" {PATCH}^3, bf16, batch {BATCH}); training "
@@ -3585,6 +4212,15 @@ def main() -> int:
         + "; joint dropout at G=5 " + ", ".join(
             f"{n} {r['volumes_per_s']:.2f} volumes trained/s"
             for n, r in trained["joint"].items()) + f"; card {smi}")
+    log("headline, evaluation and active learning (softmax_config_lidc, "
+        f"UNet3D f 8, 64^3, bf16): the phase {al['seconds']['phase']:.1f} s; "
+        "evaluation CLI seconds per task " + ", ".join(
+            f"{t} {s:.2f}" for t, s in al["seconds"]["tasks"].items())
+        + f"; second cycle {al['second_volumes_per_s']:.2f} volumes "
+        f"trained/s, step median {statistics.median(al['steps']['second']):.2f}"
+        f" ms; card {smi}")
+    log(f"the script: {time.perf_counter() - T_START:.1f} s from its "
+        f"imports to its last phase's end; card {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     # the run drives one card, whatever else the machine shows
     print(json.dumps({"ok": True, "device": {

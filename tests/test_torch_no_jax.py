@@ -1,6 +1,7 @@
 """The port stands alone: no module of values_tpu_torch, nor chip_smoke,
 imports jax or the JAX package (nor yaml, until a config is composed),
-and its entry points refuse to run on the CPU unless asked to."""
+nor scikit-learn or pandas, which the card's machine lacks; and its entry
+points refuse to run on the CPU unless asked to."""
 import ast
 import os
 import pathlib
@@ -26,12 +27,13 @@ def _module_names():
 
 
 def test_every_module_imports_with_jax_blocked():
-    """Each module imports in a fresh interpreter where ``import jax``
-    and ``import yaml`` fail; chip_smoke is imported, not run."""
+    """Each module imports in a fresh interpreter where ``import jax``,
+    ``import yaml``, ``import sklearn`` and ``import pandas`` fail;
+    chip_smoke is imported, not run."""
     code = ("import sys, importlib\n"
             "assert 'jax' not in sys.modules\n"
-            "sys.modules['jax'] = None\n"
-            "sys.modules['yaml'] = None\n"
+            "for blocked in ('jax', 'yaml', 'sklearn', 'pandas'):\n"
+            "    sys.modules[blocked] = None\n"
             f"for name in {_module_names()!r}:\n"
             "    importlib.import_module(name)\n"
             "assert not any(m == 'values_tpu' or m.startswith('values_tpu.')"
@@ -58,7 +60,8 @@ def _imported_roots(path):
 def test_no_jax_or_values_tpu_import(path):
     for name in _imported_roots(path):
         root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "flax", "values_tpu"), (
+        assert root not in ("jax", "jaxlib", "flax", "values_tpu",
+                            "sklearn", "pandas"), (
             f"{path.name} imports {name}")
 
 

@@ -6,7 +6,11 @@ JAX package's (``configs/*.yaml``), so :data:`TARGET_ALIASES` maps both
 onto their ``values_tpu_torch`` counterparts. The port never imports the
 JAX package: a ``values_tpu.*`` or reference target with no counterpart
 yet raises ``NotImplementedError`` naming the ROADMAP.md item that ports
-it.
+it. :data:`PREFIX_ALIASES` maps whole modules: every
+``values_tpu.evaluation.*`` target, and the reference's evaluation
+targets, onto ``values_tpu_torch.evaluation.*``, but GTA's loaders
+("2D") and the visualization ("Evaluation, reporting"); a name that
+module does not hold raises ``NotImplementedError`` too.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ _TOY = "values_tpu_torch.data.toy_datamodule.ToyDataModule3D"
 _LIDC = "values_tpu_torch.data.lidc_datamodule.LidcIdriDataModule3D"
 _LOGGING = "values_tpu_torch.training.tb_logging"
 _OPTIM = "values_tpu_torch.training.optim"
+_EVAL = "values_tpu_torch.evaluation"
 
 # reference or JAX-package import path -> values_tpu_torch import path
 TARGET_ALIASES: Dict[str, str] = {
@@ -48,6 +53,17 @@ for _torch_name, _name in (("SGD", "sgd"), ("Adam", "adam"),
                             "reduce_lr_on_plateau")):
     TARGET_ALIASES[f"torch.optim.{_torch_name}"] = f"{_OPTIM}.{_name}"
     TARGET_ALIASES[f"values_tpu.training.optim.{_name}"] = f"{_OPTIM}.{_name}"
+# module prefixes -> values_tpu_torch module prefixes: the JAX package's
+# evaluation modules, and the reference's that the JAX package aliases
+PREFIX_ALIASES: Dict[str, str] = {
+    "values_tpu.evaluation.": f"{_EVAL}.",
+    "evaluation.uncertainty_aggregation.": f"{_EVAL}.",
+    "evaluation.metrics.": f"{_EVAL}.metrics.",
+    "evaluation.split_file_generation.split_files_second_cycle.":
+        f"{_EVAL}.split_file_generation.second_cycle.",
+    "evaluation.split_file_generation.split_files_second_cycle_random.":
+        f"{_EVAL}.split_file_generation.second_cycle_random.",
+}
 
 # targets whose counterpart is not ported yet -> the ROADMAP.md item
 NOT_PORTED: Dict[str, str] = {
@@ -56,36 +72,59 @@ NOT_PORTED: Dict[str, str] = {
     "uncertainty_modeling.data.torch_dataloader.BaseDataModule": "2D",
     "values_tpu.data.base_datamodule.BaseDataModule": "2D",
 }
+# module prefixes whose targets are not ported yet -> the ROADMAP.md item
+NOT_PORTED_PREFIXES: Dict[str, str] = {
+    "values_tpu.evaluation.gta.": "2D",
+    "evaluation.utils.gta.": "2D",
+    "values_tpu.evaluation.visualization.": "Evaluation, reporting",
+    "evaluation.visualization.": "Evaluation, reporting",
+}
 
 
-def locate(path: str) -> Any:
-    """Import a dotted path after :data:`TARGET_ALIASES`; raise
-    ``NotImplementedError`` for a target the port has no counterpart of."""
-    path = TARGET_ALIASES.get(path, path)
-    if path.startswith(("values_tpu.", "uncertainty_modeling.",
-                        "evaluation.")):
-        item = NOT_PORTED.get(path) or (
-            "Evaluation, reporting"
-            if path.startswith(("evaluation.", "values_tpu.evaluation."))
-            else None)
-        raise NotImplementedError(
-            f"{path} has no counterpart in values_tpu_torch yet (ROADMAP.md,"
-            f" Queue 1{f': {item!r}' if item else ''})")
+def _not_ported(path: str, item) -> NotImplementedError:
+    return NotImplementedError(
+        f"{path} has no counterpart in values_tpu_torch yet (ROADMAP.md, "
+        f"Queue 1{f': {item!r}' if item else ''})")
+
+
+def _import(path: str) -> Any:
+    """The object at a dotted path, or None where nothing is there."""
     parts = path.split(".")
     for split in range(len(parts) - 1, 0, -1):
-        module_name = ".".join(parts[:split])
         try:
-            module = importlib.import_module(module_name)
+            obj: Any = importlib.import_module(".".join(parts[:split]))
         except ImportError:
             continue
-        obj: Any = module
         try:
             for attr in parts[split:]:
                 obj = getattr(obj, attr)
         except AttributeError:
             continue
         return obj
-    raise ImportError(f"Could not locate '{path}'")
+    return None
+
+
+def locate(path: str) -> Any:
+    """Import a dotted path after :data:`TARGET_ALIASES` and
+    :data:`PREFIX_ALIASES`; raise ``NotImplementedError`` for a target the
+    port has no counterpart of."""
+    path = TARGET_ALIASES.get(path, path)
+    item = NOT_PORTED.get(path) or next(
+        (item for prefix, item in NOT_PORTED_PREFIXES.items()
+         if path.startswith(prefix)), None)
+    prefix = next((p for p in PREFIX_ALIASES if path.startswith(p)), None)
+    if item is None and prefix is not None:
+        obj = _import(PREFIX_ALIASES[prefix] + path[len(prefix):])
+        if obj is None:
+            raise _not_ported(path, None)
+        return obj
+    if item or path.startswith(("values_tpu.", "uncertainty_modeling.",
+                                "evaluation.")):
+        raise _not_ported(path, item)
+    obj = _import(path)
+    if obj is None:
+        raise ImportError(f"Could not locate '{path}'")
+    return obj
 
 
 def instantiate(node: Any, *args: Any, **kwargs: Any) -> Any:
