@@ -9,7 +9,8 @@ Phases, each of which raises on failure:
 2. build the kernels, all CUDA C++ with nvcc, the two libraries in
    parallel: K1, and K2 with K3; read each nvcc log (no register
    spills), and where the toolkit has cuobjdump count the tensor-core
-   instructions (HMMA) in each of K1's bf16 tensor-core kernels and the
+   instructions (HMMA) in each of K1's tensor-core kernels (bf16 and
+   tf32x3, forward and dx) and the
    SFU (MUFU) and integer multiply-add (IMAD) instructions of K3's
    kernel on the aleatoric path;
 3. hold K1 against its plain PyTorch version on the card, in float32
@@ -22,10 +23,10 @@ Phases, each of which raises on failure:
 5. hold K3 against its plain version in both bit modes (the bits
    exactly; the sums within tolerance in the sigma form, the log_var
    form and in bfloat16; sigma = 0 exactly softmax);
-5b. hold K1b (K1's autograd Function) against autograd through K1's
-   plain version: dx, dW and db, f32 and bf16, with statistics and with
-   the leaky and ReLU epilogues, at G = 1, 2 and 5 (the joint ensemble
-   step's groups);
+5b. hold K1b (K1's autograd Function, its dx one launch of the dx
+   entry) against autograd through K1's plain version: dx, dW and db,
+   f32 and bf16, with statistics and with the leaky and ReLU epilogues,
+   at G = 1, 2 and 5 (the joint ensemble step's groups);
 6. run the deterministic path at full width -- the 5-member UNet3D
    ensemble (2 classes, initial filter size 8) scoring batches of 32
    64^3 volumes through ``make_scorer`` -- count each kernel's launches
@@ -115,9 +116,11 @@ Phases, each of which raises on failure:
 9. time each kernel at its path's shape beside its bound, its plain
    version and a library yardstick (K3: the stock-torch sampling loop,
    and its SFU floor, computed at the card's maximum SM clock; K2: both
-   forms; K1b: cuDNN's input gradient, and its device time under the
-   profiler), time and profile a training
-   step, time K1's f32 regime at the test_3d chunk's largest conv, time
+   forms; K1b: the dx entry in bf16 and f32 against cuDNN's input
+   gradient after the same fold, device time under the profiler and
+   host clock), time and profile a training step (17 launches of the dx
+   entry, no weight flip), time K1's f32 regime (tf32x3) at the test_3d
+   chunk's largest conv beside its three bounds, time
    K1 at each of the 18 convs (with its regime) and its shallow and
    tile16 kernels against each other where plan() chooses between them,
    and break one batch of each scoring path down by device kernel with
@@ -134,6 +137,7 @@ import contextlib
 import json
 import os
 import pickle
+import re
 import shutil
 import statistics
 import subprocess
@@ -144,6 +148,7 @@ import time
 import numpy as np
 
 N_MEMBERS, PATCH, CLASSES, FILTERS = 5, 64, 2, 8
+TRAIN_BATCH = 8           # the training CLI's batch (softmax_config)
 BATCH, N_BATCHES, SEED = 32, 3, 0
 AGG_PATCH, THRESHOLD = 10, 0.3
 N_ALEATORIC = 10          # logit samples per member (the reference's default)
@@ -162,7 +167,7 @@ LIDC_DATAMODULE = {"dataset_name": "LIDC-IDRI", "shift_feature": "texture",
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and
 # float32 CUDA-core FLOP/s
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
 # the script's start, for its total time
 T_START = time.perf_counter()
@@ -186,11 +191,13 @@ def phase(name: str, card: str):
 def _wrappers() -> dict:
     """Each kernel's wrapper, which counts its launches."""
     from values_tpu_torch.ops.kernels.conv3d import (conv3d_fused,
+                                                     conv3d_fused_dx,
                                                      conv3d_fused_train)
     from values_tpu_torch.ops.kernels.entropy import fused_entropy
     from values_tpu_torch.ops.kernels.sampling import sampled_softmax_stats
     return {"conv3d_fused": conv3d_fused,
             "conv3d_fused_train": conv3d_fused_train,
+            "conv3d_fused_dx": conv3d_fused_dx,
             "fused_entropy": fused_entropy,
             "sampled_softmax_stats": sampled_softmax_stats}
 
@@ -202,12 +209,17 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    """K1's count holds every K1 launch, K1b's dx launches included;
-    conv3d_fused_train's holds those dx launches alone."""
+    """K1's count holds every launch of K1's kernels, K1b's dx entry's
+    included; conv3d_fused_train's holds K1b's dx launches and
+    conv3d_fused_dx's the dx entry's launches."""
     return {name: w.launches for name, w in _wrappers().items()}
 
 
 def expect_launches(launches: dict, want: dict, what: str) -> None:
+    """The counts must be ``want``'s; every K1b dx is one launch of the dx
+    entry, so where ``want`` names no count for the entry it is K1b's."""
+    want = dict(want)
+    want.setdefault("conv3d_fused_dx", want.get("conv3d_fused_train", 0))
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, expected {want}")
 
@@ -219,10 +231,14 @@ def regimes_since(before: dict) -> dict:
             if v != before[k]}
 
 
+F32_REGIMES = {"f32", "tf32x3"}
+
+
 def expect_f32_regime(ran: dict, f32: bool, what: str) -> None:
-    """A float32 run launches K1's ``f32`` regime only, a bfloat16 run
-    never."""
-    if f32 != (set(ran) == {"f32"}):
+    """A float32 run launches K1's float32 regimes only (``tf32x3`` and,
+    for Cin 1, ``f32``), a bfloat16 run never."""
+    bad = set(ran) - F32_REGIMES if f32 else set(ran) & F32_REGIMES
+    if bad or (f32 and not ran):
         raise AssertionError(f"{what}: K1 regimes {ran}")
 
 
@@ -244,6 +260,31 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2, inner: int = 1) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def queued_ms(fn, calls: int = 10, reps: int = 7) -> float:
+    """Device ms of one call of ``fn``: CUDA events around ``calls``
+    back-to-back calls, enqueued behind a 25 ms spin kernel
+    (``torch.cuda._sleep``) so that the card runs them one after another
+    without waiting for the host; the median of ``reps`` samples, over
+    ``calls``. For calls shorter than the host's work around them, which
+    ``cuda_ms`` would time on the host's pace."""
+    import torch
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)  # cycles: 25 ms at 1980 MHz
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -281,7 +322,8 @@ def k1_inputs(gen, dtype, b, d, h, w, groups, cin1, cin2, cout, prologue):
 
 
 # (name, B, D, H, W, G, Cin1, Cin2, Cout, prologue, activation, stats,
-#  the bf16 regime of conv3d.plan; float32 always runs "f32")
+#  the bf16 regime of conv3d.plan; float32 runs the regime plan gives it,
+#  "tf32x3" but at Cin 1)
 K1_CASES = [
     ("plain", 2, 16, 16, 16, 5, 8, 0, 8, False, "none", False, "shallow"),
     ("ragged tiles", 2, 20, 12, 28, 5, 8, 0, 8, False, "none", False,
@@ -377,7 +419,8 @@ K1_TOL = {"float32": (0.0, 1e-4, 1e-5), "bfloat16": (2 ** -7, 2e-3, 1e-3)}
 def check_k1():
     import torch
     from values_tpu_torch.ops.kernels.conv3d import (conv3d_fused,
-                                                     conv3d_fused_reference)
+                                                     conv3d_fused_reference,
+                                                     plan)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for dtype in (torch.float32, torch.bfloat16):
         rtol, atol_rel, stats_rtol = K1_TOL[str(dtype).split(".")[1]]
@@ -387,7 +430,8 @@ def check_k1():
                 gen, dtype, b, d, h, w, g, cin1, cin2, cout, pro)
             kw = dict(x2=x2, prologue=maps, activation=act,
                       emit_stats=stats)
-            regime = "f32" if dtype == torch.float32 else regime
+            if dtype == torch.float32:
+                regime = plan(dtype, d, h, w, g, cin1, cin2, cout).regime
             before = dict(conv3d_fused.regime_launches)
             got = conv3d_fused(x, weight, bias, g, **kw)
             ran = regimes_since(before)
@@ -403,7 +447,7 @@ def check_k1():
             atol = (1e-4 if dtype == torch.float32
                     else atol_rel * float(ref.max()))
             bad = int((err > atol + rtol * ref).sum())
-            msg = (f"K1 {str(dtype)[6:]:8s} {regime:6s} {name:34s} "
+            msg = (f"K1 {str(dtype)[6:]:8s} {regime:7s} {name:34s} "
                    f"max_abs_err {float(err.max()):.3e} (max|ref| "
                    f"{float(ref.max()):.3f})")
             if stats:
@@ -424,7 +468,28 @@ def check_k1():
 
 K1_KERNELS = ("conv3d_f32_kernel", "conv3d_cin1_kernel", "conv3d_mma_kernel",
               "conv3d_shallow_kernel")
+# the tensor-core kernels: conv3d_mma_kernel's bf16 and float (tf32x3)
+# instances, the shallow kernel; each forward and dx (the dx entry's
+# instances take FLIP = true)
 K1_TENSOR_CORE_KERNELS = ("conv3d_mma_kernel", "conv3d_shallow_kernel")
+# a kernel instance of the dx entry: the last template argument, FLIP,
+# true (demangled, as the profiler names it, or mangled, as cuobjdump)
+DX_MARKS = (", true>", "Lb1EE")
+
+
+def is_dx_kernel(name: str) -> bool:
+    return (any(k in name for k in K1_KERNELS)
+            and any(m in name for m in DX_MARKS))
+
+
+def k1_family(name: str) -> str:
+    """A K1 kernel instance's family: tensor-core kernel, element type
+    (the mma kernel's float instances are tf32x3), forward or dx."""
+    kind = next(k for k in K1_KERNELS if k in name)
+    tf32 = kind == "conv3d_mma_kernel" and re.search(r"(ELi\d+Ef|, float,)",
+                                                     name)
+    return (f"{kind}{' tf32x3' if tf32 else ''}"
+            f"{' dx' if is_dx_kernel(name) else ''}")
 
 
 def nvcc_report(lib, what: str) -> None:
@@ -467,8 +532,9 @@ def sass_counts(lib, opcodes) -> dict:
 
 def check_k1_build(lib) -> None:
     """K1's build: no spills; the HMMA instructions of each of K1's
-    kernels, where the toolkit has cuobjdump; a bf16 tensor-core kernel
-    with none fails."""
+    kernels, where the toolkit has cuobjdump; a tensor-core kernel
+    instance with none fails, and so does a missing family (bf16 and
+    tf32x3, forward and dx)."""
     nvcc_report(lib, "K1")
     counts = sass_counts(lib, ("HMMA",))
     if not counts:
@@ -478,9 +544,14 @@ def check_k1_build(lib) -> None:
         log(f"K1 SASS: {n['HMMA']:5d} HMMA in {fn}")
     mma = {fn: n["HMMA"] for fn, n in counts.items()
            if any(k in fn for k in K1_TENSOR_CORE_KERNELS)}
-    families = {k for fn in mma for k in K1_TENSOR_CORE_KERNELS if k in fn}
-    if families != set(K1_TENSOR_CORE_KERNELS) or not all(mma.values()):
-        raise AssertionError(f"K1's tensor-core kernels lack HMMA: {mma}")
+    families = {k1_family(fn) for fn in mma}
+    want = {f"{k}{t}{d}" for k in K1_TENSOR_CORE_KERNELS
+            for t in ((" tf32x3", "") if k == "conv3d_mma_kernel" else ("",))
+            for d in ("", " dx")}
+    log(f"K1 SASS: tensor-core families {sorted(families)}")
+    if families != want or not all(mma.values()):
+        raise AssertionError(f"K1's tensor-core kernels lack HMMA or a "
+                             f"family: {mma}")
 
 
 # K3's kernel on the aleatoric path: two classes, Philox, log_var, bf16
@@ -667,32 +738,47 @@ def k1b_grads(fn, x, weight, bias, groups, case, gy, g1, g2):
     return torch.autograd.grad(total, (x, weight, bias))
 
 
-# (name, dtype, B, volume, G, Cin, Cout)
-K1B_CASES = [("B 2, 32^3, G 2, 16 -> 8", "float32", 2, 32, 2, 16, 8),
-             ("expand_1_1: B 8, 64^3, G 1, 16 -> 8", "bfloat16", 8, 64, 1,
-              16, 8),
-             # the joint ensemble step's expand_1_1 at G = M = 5
-             ("joint expand_1_1: B 8, 64^3, G 5, 16 -> 8", "float32", 8, 64,
-              5, 16, 8),
-             ("joint expand_1_1: B 8, 64^3, G 5, 16 -> 8", "bfloat16", 8,
-              64, 5, 16, 8)]
+K1B_FOLDS = ("stats", "leaky", "relu")
+# (name, dtype, B, volume, G, forward Cin, forward Cout, the folds held)
+K1B_CASES = [
+    ("B 2, 32^3, G 2, 16 -> 8", "float32", 2, 32, 2, 16, 8, K1B_FOLDS),
+    # a float32 shape that tf32x3 does not take (Cout 12, Cin 24): plan_dx
+    # gives its dx to the CUDA-core kernel's dx instance; 12^3 is ragged
+    # in its 4x8x8 tile
+    ("CUDA-core dx: B 2, 12^3, G 2, 24 -> 12", "float32", 2, 12, 2, 24, 12,
+     K1B_FOLDS)]
+# the 17 convs whose dx a training step takes (UNET3D_F8_CONVS past the
+# first conv, the decoder's concat as one input) at the training batch, G 1
+# (a step) and G = M (a joint step), in both dtypes: every dx instance a
+# training step launches; expand_1_1 (the 16th) also after a ReLU
+K1B_CASES += [
+    (f"dx {i:2d}/17 B {TRAIN_BATCH}, {d}^3, G {g}, {c1 + c2} -> {co}", dt,
+     TRAIN_BATCH, d, g, c1 + c2, co, K1B_FOLDS if i == 16 else K1B_FOLDS[:2])
+    for dt in ("float32", "bfloat16") for g in (1, N_MEMBERS)
+    for i, (d, c1, c2, co, *_) in enumerate(UNET3D_F8_CONVS[1:], 1)]
 # Tolerances: float32 atol 1e-4 max|g| -- dx, dW and db each add up to
-# 27 Cout (dx) or B D H W (dW, db) products in another order than cuDNN
-# does on the plain side (TF32 off); bfloat16 K1's rule, 2**-7 |ref| +
-# 2e-3 max|g|: both sides round the same float32 sums to bfloat16 and an
-# ulp of order can flip a rounding.
+# 27 Cout (dx; 3xTF32 products, float32's accuracy) or B D H W (dW, db)
+# terms in another order than cuDNN does on the plain side (TF32 off),
+# db with float32 atomics in an order that changes from run to run;
+# bfloat16 K1's rule, 2**-7 |ref| + 2e-3 max|g|: both sides round the
+# same float32 sums to bfloat16 and an ulp of order can flip a rounding.
 K1B_TOL = {"float32": (0.0, 1e-4), "bfloat16": (2 ** -7, 2e-3)}
 
 
 def check_k1b():
     """K1b's dx, dW and db on the card against autograd through K1's
     plain version, for the statistics case (activation none) and the
-    leaky and ReLU epilogues; each backward's dx launches K1 once."""
+    leaky and ReLU epilogues: each backward's dx is one launch of the dx
+    entry, in plan_dx's regime (the forward in plan's), which also writes
+    the folded cotangent that dW reads (held through dW) and db."""
+    import collections
     import torch
-    from values_tpu_torch.ops.kernels.conv3d import conv3d_fused_train
+    from values_tpu_torch.ops.kernels.conv3d import (conv3d_fused,
+                                                     conv3d_fused_train,
+                                                     plan, plan_dx)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     worst = 0.0
-    for name, dt, b, p, g, cin, cout in K1B_CASES:
+    for name, dt, b, p, g, cin, cout, folds in K1B_CASES:
         dtype = getattr(torch, dt)
         rtol, atol_rel = K1B_TOL[dt]
         x, weight, bias, _, _ = k1_inputs(gen, dtype, b, p, p, p, g, cin, 0,
@@ -704,12 +790,17 @@ def check_k1b():
         # different branches
         pre = plain_train_conv(x, weight, bias, g).float()
         gy = torch.where(pre.abs() < 1e-3 * pre.abs().max(), 0.0, gy)
+        del pre
         # statistics cotangents large enough to survive K1b's bf16 fold
         # (fault R5: a shift below half an ulp of dy is rounded away)
         g1, g2 = torch.randn((2, b, g * cout), generator=gen,
                              device="cuda") * 0.1
-        for case in ("stats", "leaky", "relu"):
+        dx_regime = plan_dx(dtype, p, p, p, g, cout, cin).regime
+        expected = dict(collections.Counter(
+            [plan(dtype, p, p, p, g, cin, 0, cout).regime, dx_regime]))
+        for case in folds:
             reset_launches()
+            regimes = dict(conv3d_fused.regime_launches)
             got = k1b_grads(conv3d_fused_train, x, weight, bias, g, case, gy,
                             g1, g2)
             torch.cuda.synchronize()
@@ -719,6 +810,11 @@ def check_k1b():
                                        "fused_entropy": 0,
                                        "sampled_softmax_stats": 0},
                             f"K1b {name} {case} (forward + dx)")
+            ran = regimes_since(regimes)
+            if ran != expected:
+                raise AssertionError(f"K1b {dt} {name} {case}: regimes "
+                                     f"{ran}, expected {expected} (the dx "
+                                     f"entry's {dx_regime})")
             want = k1b_grads(plain_train_conv, x, weight, bias, g, case, gy,
                              g1, g2)
             errs = []
@@ -729,12 +825,13 @@ def check_k1b():
                 errs.append(float(err.max()) / scale)
                 if bool((err > atol_rel * scale + rtol * w.abs()).any()):
                     raise AssertionError(
-                        f"K1b {name} {case} {what}: max_abs_err "
+                        f"K1b {dt} {name} {case} {what}: max_abs_err "
                         f"{float(err.max()):.3e} (max|g| {scale:.3e})")
             worst = max(worst, *errs)
             log(f"K1b {dt:8s} {name:36s} {case:5s}: max_abs_err / max|g| "
                 f"dx {errs[0]:.2e} dW {errs[1]:.2e} db {errs[2]:.2e}; "
-                f"K1 launched for dx")
+                f"dx entry launched once ({dx_regime})")
+            del got, want
     return worst
 
 
@@ -1133,7 +1230,7 @@ def cli_path(card: str):
 # -- the training CLI ---------------------------------------------------------
 
 TRAIN_IMAGES, TRAIN_TEST_IMAGES, RATERS = 32, 2, 3
-TRAIN_BATCH, TIMED_STEPS = 8, 5
+TIMED_STEPS = 5
 # K1 per training step: 18 forward convs, and dx for all but the first
 # (the input needs no gradient); K1 per validation forward: 18
 K1_FORWARD, K1_DX = 18, 17
@@ -2400,8 +2497,8 @@ def training_launches(root: str, epochs: int) -> dict:
 # The bottleneck's leaves (center_conv1, center_conv2, center_up) get a
 # per-leaf limit of 3e-2 in the dropout and SSN first-step checks, the
 # other leaves first_step_against_plain's 1e-2: their f32 gradients
-# cancel heavily, and K1's f32 regime sums each output's 27 * Cin
-# products (1,728-3,456 there) in one f32 chain, so on a dropout step the
+# cancel heavily, and K1's f32 regimes sum each output's 27 * Cin
+# products (1,728-3,456 there) in float32, so on a dropout step the
 # kernel path's error there reaches about 1e-2. The dropout check logs
 # both f32 paths against the float64 plain path to show it; a wrong
 # gradient is off by order 1.
@@ -2840,9 +2937,10 @@ AL_QUERIES = [(unc, agg) for unc in ("predictive_uncertainty",
                                      "epistemic_uncertainty")
               for agg in ("patch_level", "threshold")] + [("random",
                                                            "random")]
-# the card's float32 box filter against the host's float64 convolution:
-# its cumulative sums round each box to under 1e-6 of its value (160
-# maps of this phase on an H100); the limit leaves a tenfold margin
+# the card's box filter against the host's float64 convolution: float32
+# cumulative sums rounded each box to under 1e-6 of its value (160 maps
+# of this phase on an H100), which left a tenfold margin; since PR 10
+# the card's sums are float64
 BOX_RTOL = 1e-5
 
 
@@ -2884,8 +2982,8 @@ def run_eval(overrides: list, tasks) -> float:
 def al_test_3d(ckpts, data: str, save_dir: str, exp_name: str,
                split: str, dtype: str = "bfloat16"):
     """The test_3d CLI over one LIDC split, 18 K1 launches per volume (one
-    64^3 window, one chunk each), K1's f32 regime alone in float32 and
-    never in bfloat16; returns (seconds, launches, volumes, mean dice,
+    64^3 window, one chunk each), K1's float32 regimes alone in float32
+    and never in bfloat16; returns (seconds, launches, volumes, mean dice,
     the carrier)."""
     from values_tpu_torch.inference import test_3d
     from values_tpu_torch.ops.kernels.conv3d import conv3d_fused
@@ -3089,13 +3187,13 @@ def compare_device_aggregation(host: dict, device: dict, unc_map,
 
 
 def box_filter_card_ms(path: str) -> float:
-    """The box filter alone on one 64^3 map already on the card (CUDA
-    events)."""
+    """The box filter alone on one 64^3 map already on the card, in
+    float64 as the aggregation runs it (CUDA events)."""
     import torch
     from values_tpu_torch.core import nifti
     from values_tpu_torch.ops.aggregation import box_filter_sum
     image, _ = nifti.load(path)
-    x = torch.from_numpy(np.ascontiguousarray(image, np.float32)).cuda()
+    x = torch.from_numpy(np.ascontiguousarray(image, np.float64)).cuda()
     return cuda_ms(lambda: box_filter_sum(x, (10,) * 3, range(3)))
 
 
@@ -3364,22 +3462,30 @@ def al_path(card: str) -> dict:
 
 
 def time_k1_f32_chunk():
-    """K1's ``f32`` regime at the test_3d default chunk's largest conv,
-    expand_1_1 (B 12, 64^3, G 5, 8 + 8 -> 8 channels per group, prologue,
-    leaky), beside its bound, its plain version and F.conv3d(groups=5)
-    in float32 with TF32 off (with the same prologue, concat and
-    activation as separate passes)."""
+    """K1's float32 regime (``tf32x3``) at the test_3d default chunk's
+    largest conv, expand_1_1 (B 12, 64^3, G 5, 8 + 8 -> 8 channels per
+    group, prologue, leaky), beside its bounds (the 3xTF32 floor, three
+    TF32 products at the tensor cores' rate, which is its bound; the
+    CUDA-core float32 rate, the earlier regime's; the bytes), its plain
+    version and F.conv3d(groups=5) in float32 with TF32 off (with the
+    same prologue, concat and activation as separate passes)."""
     import torch
     import torch.nn.functional as F
     from values_tpu_torch.ops.kernels.conv3d import (concat_groups,
                                                      conv3d_fused,
-                                                     conv3d_fused_reference)
+                                                     conv3d_fused_reference,
+                                                     plan)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     b, g, c = 12, N_MEMBERS, FILTERS
     x, weight, bias, x2, maps = k1_inputs(gen, torch.float32, b, PATCH,
                                           PATCH, PATCH, g, c, c, c, True)
     kw = dict(x2=x2, prologue=maps, activation="leaky")
+    regime = plan(torch.float32, PATCH, PATCH, PATCH, g, c, c, c).regime
+    before = dict(conv3d_fused.regime_launches)
     out = conv3d_fused(x, weight, bias, g, **kw)
+    if regimes_since(before) != {regime: 1}:
+        raise AssertionError(f"K1 f32 at the test_3d chunk: regimes "
+                             f"{regimes_since(before)}, expected {regime}")
     ref = conv3d_fused_reference(x, weight, bias, g, **kw)
     err = float((out - ref).abs().max())
     if err > 1e-4:
@@ -3404,10 +3510,12 @@ def time_k1_f32_chunk():
     bytes_moved = 4 * vox * g * 3 * c + 4 * weight.numel() + 3 * 4 * \
         maps[0].numel() + 4 * bias.numel()
     flops = 2 * vox * g * 27 * (2 * c) * c
-    bound_ms, bound_by = bound(bytes_moved, flops, "float32")
+    bound_ms, bound_by = bound(bytes_moved, 3 * flops, "tf32")
     return {"shape": f"expand_1_1 B={b} {PATCH}^3 G={g} Cin={2 * c} "
-                     f"Cout={c} f32", "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+                     f"Cout={c} f32", "regime": regime, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "cuda_core_bound_ms": bound(0, flops, "float32")[0],
+            "bytes_bound_ms": bound(bytes_moved, 0, "float32")[0],
             "library_ms": library_ms, "max_abs_err": err,
             "tflops": flops / ms / 1e9}
 
@@ -3658,75 +3766,123 @@ def time_k3(launches, grouped, vols):
 
 def time_k1b(launches):
     """K1b's dx at the training path's largest conv, expand_1_1 (B 8,
-    64^3, G 1, 16 -> 8 channels, leaky epilogue, bf16): the activation
-    fold and K1 on the flipped weight, through the autograd Function
-    with only x needing a gradient; beside its plain version (autograd
-    through conv3d_fused_reference), cuDNN's input gradient
-    (aten.convolution_backward) after the same fold, and, for the
-    record, cuDNN's weight gradient at the same conv (the dW that K1b
-    leaves to the library)."""
+    64^3, G 1, 16 -> 8 channels, leaky epilogue), in bf16 and f32: the dx
+    entry as a training step launches it (the fold, the conv on the
+    forward's weight read flipped, the folded cotangent for dW and db, in
+    one launch), checked through the autograd Function against its plain
+    version (autograd through conv3d_fused_reference); beside cuDNN's
+    input gradient after the same fold (torch.where and
+    aten.convolution_backward: what library calls give for the same dx)
+    and, for the record, cuDNN's weight gradient at the same conv (the dW
+    that K1b leaves to the library). Device time of each like for like
+    (queued_ms: 10 calls queued behind a spin kernel), the host clock
+    (CUDA events around 10 back-to-back calls, over 10), and the
+    profiler's device time of the entry (every kernel of 10 calls, over
+    10) with its count of dx-kernel records (10 when none is lost). The
+    bf16 numbers lead; the f32 ones (tf32x3, bound by the 3xTF32 floor)
+    are under "float32"."""
     import torch
-    from values_tpu_torch.ops.kernels.conv3d import conv3d_fused_train
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    from values_tpu_torch.ops.kernels.conv3d import (conv3d_fused_dx,
+                                                     conv3d_fused_train,
+                                                     plan_dx)
     b, cin, cout = TRAIN_BATCH, 2 * FILTERS, FILTERS
-    x, weight, bias, _, _ = k1_inputs(gen, torch.bfloat16, b, PATCH, PATCH,
-                                      PATCH, 1, cin, 0, cout, False)
-    dy = torch.randn((b, PATCH, PATCH, PATCH, cout), generator=gen,
-                     device="cuda").to(torch.bfloat16)
-    x = x.requires_grad_(True)
-    graphs = {name: fn(x, weight, bias, 1, activation="leaky")
-              for name, fn in (("kernel", conv3d_fused_train),
-                               ("plain", plain_train_conv))}
-
-    def dx(name):
-        return torch.autograd.grad(graphs[name], x, dy, retain_graph=True)[0]
-
-    got, want = dx("kernel").float(), dx("plain").float()
-    err = float((got - want).abs().max())
-    rtol, atol_rel = K1B_TOL["bfloat16"]
-    if bool(((got - want).abs() > atol_rel * float(want.abs().max())
-             + rtol * want.abs()).any()):
-        raise AssertionError(f"K1b dx at expand_1_1: max_abs_err {err}")
-    y = graphs["kernel"].detach()
-    views = dict(x=x.detach().permute(0, 4, 1, 2, 3),
-                 w=weight.permute(4, 3, 0, 1, 2))
-
-    def library(mask):
-        g = torch.where(y > 0, dy, 0.01 * dy).permute(0, 4, 1, 2, 3)
-        return torch.ops.aten.convolution_backward(
-            g, views["x"], views["w"], None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
-            False, [0, 0, 0], 1, mask)
-
-    # 10 back-to-back calls per sample, for each of them alike: one call
-    # is shorter than autograd's host time around it
-    ms = cuda_ms(lambda: dx("kernel"), inner=10)
-    # the card's own time for one dx, without the host's: every kernel of
-    # 10 calls under the profiler (the fold, the weight flip, K1), and
-    # K1's share, each over 10
-    def ten_calls():
-        for _ in range(10):
-            dx("kernel")
-    _, _, busy, k1_busy, _ = device_times(ten_calls)
-    plain_ms = cuda_ms(lambda: dx("plain"), reps=5)
-    library_ms = cuda_ms(lambda: library([True, False, False]), inner=10)
-    dw_library_ms = cuda_ms(lambda: library([False, True, False]),
-                            inner=10)
     vox = b * PATCH ** 3
-    # read dy and the saved output, write dx; the weight once
-    bytes_moved = 2 * vox * (cout + cout + cin) + 2 * weight.numel()
-    flops = 2 * vox * 27 * cin * cout
-    bound_ms, bound_by = bound(bytes_moved, flops, "bfloat16")
-    return {"name": "conv3d_fused_train", "route": "cuda",
-            "source": "values_tpu_torch/ops/kernels/conv3d.py",
-            "replaces": "values_tpu/ops/pallas/conv3d.py:906",
-            "launches": launches["conv3d_fused_train"], "max_abs_err": err,
+
+    def profiled(fn):  # the profiler's ms a call and its dx records
+        def ten():
+            for _ in range(10):
+                fn()
+        table = device_times(ten)[0]
+        kernels = [e for e in table if "CUDA" in str(e.device_type)
+                   and e.self_device_time_total > 0]
+        return (sum(e.self_device_time_total for e in kernels) / 1e4,
+                sum(e.count for e in kernels if is_dx_kernel(e.key)))
+
+    result = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[1]
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        x, weight, bias, _, _ = k1_inputs(gen, dtype, b, PATCH, PATCH,
+                                          PATCH, 1, cin, 0, cout, False)
+        dy = torch.randn((b, PATCH, PATCH, PATCH, cout), generator=gen,
+                         device="cuda")
+        # no cotangent within 1e-3 of the leaky kink, where the kernel and
+        # the plain forward, rounding apart, may take different branches
+        pre = plain_train_conv(x, weight, bias, 1).float()
+        dy = torch.where(pre.abs() < 1e-3 * pre.abs().max(), 0.0,
+                         dy).to(dtype)
+        del pre
+        x = x.requires_grad_(True)
+        graphs = {name: fn(x, weight, bias, 1, activation="leaky")
+                  for name, fn in (("kernel", conv3d_fused_train),
+                                   ("plain", plain_train_conv))}
+
+        def dx(name):
+            return torch.autograd.grad(graphs[name], x, dy,
+                                       retain_graph=True)[0]
+
+        got, want = dx("kernel").float(), dx("plain").float()
+        err = float((got - want).abs().max())
+        rtol, atol_rel = K1B_TOL[dt]
+        if bool(((got - want).abs() > atol_rel * float(want.abs().max())
+                 + rtol * want.abs()).any()):
+            raise AssertionError(f"K1b dx at expand_1_1 {dt}: max_abs_err "
+                                 f"{err}")
+        y = graphs["kernel"].detach()
+        views = dict(x=x.detach().permute(0, 4, 1, 2, 3),
+                     w=weight.permute(4, 3, 0, 1, 2))
+
+        def entry():
+            return conv3d_fused_dx(dy, weight, 1, y=y, fold="leaky",
+                                   cotangent=True, bias_grad=True)
+
+        def library(mask):
+            g = torch.where(y > 0, dy, 0.01 * dy).permute(0, 4, 1, 2, 3)
+            return torch.ops.aten.convolution_backward(
+                g, views["x"], views["w"], None, [1, 1, 1], [1, 1, 1],
+                [1, 1, 1], False, [0, 0, 0], 1, mask)
+
+        # 10 back-to-back calls per sample: one call is shorter than the
+        # host's time around it
+        ms = cuda_ms(entry, inner=10)
+        library_ms = cuda_ms(lambda: library([True, False, False]), inner=10)
+        dw_library_ms = cuda_ms(lambda: library([False, True, False]),
+                                inner=10)
+        device_ms = queued_ms(entry)
+        library_device_ms = queued_ms(lambda: library([True, False, False]))
+        profiler_ms, profiler_records = profiled(entry)
+        plain_ms = cuda_ms(lambda: dx("plain"), reps=5)
+        size = 2 if dtype == torch.bfloat16 else 4
+        # read dy and y, write dx and the folded cotangent; the weight
+        # once; db
+        bytes_moved = size * vox * (cout + cout + cin + cout) + \
+            size * weight.numel() + 4 * cout
+        flops = 2 * vox * 27 * cin * cout
+        if dtype == torch.bfloat16:
+            bound_ms, bound_by = bound(bytes_moved, flops, "bfloat16")
+        else:  # tf32x3: three TF32 products each on the tensor cores
+            bound_ms, bound_by = bound(bytes_moved, 3 * flops, "tf32")
+        result[dt] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "dw_library_ms": dw_library_ms, "device_ms": busy / 10,
-            "k1_device_ms": k1_busy / 10,
-            "shape": f"dx of expand_1_1 B={b} {PATCH}^3 G=1 Cin={cin} "
-                     f"Cout={cout} bf16, leaky fold + K1 on the flipped "
-                     "weight"}
+            "dw_library_ms": dw_library_ms, "device_ms": device_ms,
+            "library_device_ms": library_device_ms,
+            "profiler_ms": profiler_ms, "profiler_records": profiler_records,
+            "max_abs_err": err,
+            "regime": plan_dx(dtype, PATCH, PATCH, PATCH, 1, cout,
+                              cin).regime}
+        del graphs, got, want
+    out = dict(result["bfloat16"])
+    out.update({
+        "name": "conv3d_fused_train", "route": "cuda",
+        "source": "values_tpu_torch/csrc/conv3d_fused.cu",
+        "replaces": "values_tpu/ops/pallas/conv3d.py:906",
+        "launches": launches["conv3d_fused_train"],
+        "float32": result["float32"],
+        "shape": f"dx of expand_1_1 B={b} {PATCH}^3 G=1 Cin={cin} "
+                 f"Cout={cout} bf16, the dx entry (leaky fold, flipped "
+                 "weight, folded cotangent and db out)"})
+    return out
 
 
 def device_times(fn):
@@ -3751,15 +3907,62 @@ def device_times(fn):
     return table, wall, busy, k1, dw
 
 
+# the elementwise ops that K1b's dx entry does in the kernel (the fold, the
+# flip, the float32 copies for the fold and db, db's sum)
+K1B_HOST_OPS = ("aten::where", "aten::flip", "aten::_to_copy", "aten::add",
+                "aten::mul", "aten::sum")
+
+
+def k1b_backward_ops(step, bf16: bool) -> dict:
+    """Profile one call of ``step`` (a training step; host ops with their
+    shapes) and count the K1B_HOST_OPS on volume-sized inputs that run in
+    K1b's backward nodes (Conv3dFusedFnBackward), outside the dW library
+    call (aten::convolution_backward). Only the first conv, which has no
+    dx, still folds in torch: its statistics fold ``dy + ds1 + 2 y ds2``
+    adds twice and multiplies twice, db is one sum, and in bf16 dy and y
+    go to float32 and back and the cotangent to float32 again for db (4
+    copies). The counts fail where they rise above that."""
+    import collections
+    from torch.profiler import ProfilerActivity, profile
+    # the smallest cotangent of a step: the bottleneck's, B 4^3 x 16 F;
+    # per-channel maps and db stay below it
+    volume = TRAIN_BATCH * (PATCH // 16) ** 3 * 16 * FILTERS
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        step()
+    counts = collections.Counter()
+    for e in prof.events():
+        if e.name not in K1B_HOST_OPS or not e.input_shapes:
+            continue
+        if int(np.prod(e.input_shapes[0] or [1])) < volume:
+            continue
+        a, in_dw = e.cpu_parent, False
+        while a is not None and "Conv3dFusedFnBackward" not in a.name:
+            in_dw |= a.name == "aten::convolution_backward"
+            a = a.cpu_parent
+        if a is not None and not in_dw:
+            counts[e.name] += 1
+    allowed = {"aten::add": 2, "aten::mul": 2, "aten::sum": 1,
+               "aten::_to_copy": 4 if bf16 else 0}
+    rose = {op: n for op, n in counts.items() if n > allowed.get(op, 0)}
+    if rose:
+        raise AssertionError(f"K1b's backward ran {dict(counts)} over "
+                             f"volumes outside the dx entry (at most "
+                             f"{allowed}: the first conv's fold)")
+    return dict(counts)
+
+
 def time_training(exp32, state32, batch, root: str, card: str):
     """Milliseconds per training step and volumes trained per second at
     batch 8, f32 (with TF32 off and on) and bf16: host clock around
     TIMED_STEPS steps ending in a synchronize, after 2 warm-up steps, the
     batch already on the card; peak device memory of a step; and a
     profile of one step of each, split into K1 forward (from a profile of
-    the forward alone), K1 dx, the dW library call
+    the forward alone), K1b's dx (the dx entry's kernels: 17 launches a
+    step, and no aten::flip), the dW library call
     (aten::convolution_backward), the rest (norms, losses, optimizer,
-    casts) and idle."""
+    casts) and idle; a further step, profiled on the host, holds the ops
+    around K1b's dx entry (k1b_backward_ops)."""
     import torch
     from values_tpu_torch.config import compose
     from values_tpu_torch.training.experiment import Experiment
@@ -3795,6 +3998,21 @@ def time_training(exp32, state32, batch, root: str, card: str):
         _, _, _, k1_fwd, _ = device_times(forward)
         table, wall, busy, k1, dw = device_times(
             lambda: exp.train_step(state, batch))
+        # K1b's dx: one launch of the dx entry each, and no separate fold,
+        # flip or float32 copy of dy around it
+        kernels = [e for e in table if "CUDA" in str(e.device_type)
+                   and e.self_device_time_total > 0]
+        dx_launches = sum(e.count for e in kernels if is_dx_kernel(e.key))
+        dx_ms = sum(e.self_device_time_total for e in kernels
+                    if is_dx_kernel(e.key)) / 1e3
+        ops = {op: sum(e.count for e in table if e.key == op)
+               for op in ("aten::flip", "aten::where", "aten::_to_copy")}
+        if busy and (dx_launches != K1_DX or ops["aten::flip"]):
+            raise AssertionError(f"training step {name}: {dx_launches} "
+                                 f"launches of the dx entry (expected "
+                                 f"{K1_DX}), host ops {ops}")
+        k1b_ops = k1b_backward_ops(lambda: exp.train_step(state, batch),
+                                   name == "bf16")
         torch.backends.cudnn.allow_tf32 = False
         tag = name.replace(", TF32 dW", "_tf32")
         with open(os.path.join(OUT_DIR, f"profile_train_step_{tag}.txt"),
@@ -3805,7 +4023,9 @@ def time_training(exp32, state32, batch, root: str, card: str):
                         "volumes_per_s": TRAIN_BATCH / step_ms * 1e3,
                         "peak_gb": peak_gb, "wall_ms": wall,
                         "busy_ms": busy, "k1_forward_ms": k1_fwd,
-                        "k1_dx_ms": k1 - k1_fwd, "dw_ms": dw,
+                        "k1_dx_ms": dx_ms, "dx_launches": dx_launches,
+                        "host_ops": ops, "k1b_backward_ops": k1b_ops,
+                        "dw_ms": dw,
                         "other_ms": busy - k1 - dw}
         r = result[name]
         if not busy:
@@ -3815,9 +4035,14 @@ def time_training(exp32, state32, batch, root: str, card: str):
             f"{step_ms:.2f} ms, {r['volumes_per_s']:.2f} volumes/s, peak "
             f"{peak_gb:.2f} GB; profile of one step (profiler on): device "
             f"{busy:.2f} of {wall:.2f} ms wall, idle share "
-            f"{1 - busy / wall:.3f}; K1 forward {k1_fwd:.2f} ms, K1 dx "
-            f"{k1 - k1_fwd:.2f} ms, dW (cuDNN) {dw:.2f} ms, the rest "
-            f"{busy - k1 - dw:.2f} ms; card {card}")
+            f"{1 - busy / wall:.3f}; K1 forward {k1_fwd:.2f} ms, K1b dx "
+            f"{dx_ms:.2f} ms in {dx_launches} launches of the dx entry "
+            f"(aten::flip {ops['aten::flip']}, aten::where "
+            f"{ops['aten::where']}, aten::_to_copy "
+            f"{ops['aten::_to_copy']} in the step; over volumes in K1b's "
+            f"backward outside dW {k1b_ops}), K1 in all {k1:.2f} ms, "
+            f"dW (cuDNN) {dw:.2f} ms, the rest {busy - k1 - dw:.2f} ms; card "
+            f"{card}")
     return result
 
 
@@ -4119,19 +4344,33 @@ def main() -> int:
                          f"({k['probs_bound_by']}), plain "
                          f"{k['probs_plain_ms']:.3f} ms")
             if "dw_library_ms" in k:
-                extra = (f"; device time (profiler, 10 calls) "
-                         f"{k['device_ms']:.3f} ms, of it K1 "
-                         f"{k['k1_device_ms']:.3f} ms; dW at the same conv "
-                         f"(cuDNN weight gradient) "
-                         f"{k['dw_library_ms']:.3f} ms")
+                extra = "".join(
+                    f"; {dt} ({r['regime']}): device time (10 calls "
+                    f"queued) {r['device_ms']:.4f} ms against cuDNN's fold + "
+                    f"input gradient {r['library_device_ms']:.4f} ms "
+                    f"(the profiler: {r['profiler_ms']:.4f} ms, "
+                    f"{r['profiler_records']} of 10 dx records), "
+                    f"{r['bound_ms'] / r['device_ms']:.1%} of its bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']}); host clock "
+                    f"{r['ms']:.4f} ms against {r['library_ms']:.4f} ms; dW "
+                    f"(cuDNN weight gradient) {r['dw_library_ms']:.4f} ms; "
+                    f"plain {r['plain_ms']:.3f} ms; max_abs_err "
+                    f"{r['max_abs_err']:.2e}"
+                    for dt, r in (("bf16", k), ("f32", k["float32"])))
             if "test_3d_f32" in k:
                 t = k["test_3d_f32"]
-                extra = (f"; f32 regime at the test_3d chunk [{t['shape']}]: "
-                         f"{t['ms']:.3f} ms ({t['tflops']:.1f} TFLOP/s), "
-                         f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}), "
-                         f"plain {t['plain_ms']:.3f} ms, F.conv3d(groups="
-                         f"{N_MEMBERS}) f32 with TF32 off "
-                         f"{t['library_ms']:.3f} ms")
+                extra = (f"; {t['regime']} regime at the test_3d chunk "
+                         f"[{t['shape']}]: {t['ms']:.3f} ms ("
+                         f"{t['tflops']:.1f} TFLOP/s), bound "
+                         f"{t['bound_ms']:.3f} ms ({t['bound_by']}, the "
+                         f"3xTF32 floor; {t['bound_ms'] / t['ms']:.1%} of "
+                         f"it), CUDA-core bound {t['cuda_core_bound_ms']:.3f}"
+                         f" ms ({t['cuda_core_bound_ms'] / t['ms']:.1%}), "
+                         f"byte bound {t['bytes_bound_ms']:.3f} ms ("
+                         f"{t['bytes_bound_ms'] / t['ms']:.1%}), max_abs_err "
+                         f"{t['max_abs_err']:.2e}, plain {t['plain_ms']:.3f}"
+                         f" ms, F.conv3d(groups={N_MEMBERS}) f32 with TF32 "
+                         f"off {t['library_ms']:.3f} ms")
             if "path_launches" in k:
                 extra += f"; other paths' launches {json.dumps(k['path_launches'])}"
             library = ("none" if k["library_ms"] is None

@@ -12,7 +12,8 @@ from values_tpu.ops.pallas.conv3d import (conv3d_banded_packed, pack_ndhwc,
                                           unpack_ndhwc)
 from values_tpu_torch.ops.kernels.conv3d import (concat_groups,
                                                  conv3d_fused,
-                                                 conv3d_fused_reference)
+                                                 conv3d_fused_reference,
+                                                 plan)
 
 G, C, P, B = 2, 8, 16, 8
 BP = 128 // P                       # the JAX side's packed items per 128 lanes
@@ -168,7 +169,8 @@ def test_cpu_tensors_take_the_plain_version():
         _torch_conv(dict(activation="gelu"), conv3d_fused)
 
 
-# one shape per regime of conv3d.plan (bf16; float32 always runs "f32"):
+# one shape per regime of conv3d.plan (bf16; float32 runs what plan gives
+# it: "f32" for Cin 1, "tf32x3" for the others):
 # (regime, B, (D, H, W), G, Cin1, Cin2, Cout)
 REGIME_CASES = [
     ("cin1", 2, (16, 12, 20), 5, 1, 0, 8),
@@ -237,7 +239,8 @@ def test_kernel_matches_plain_on_cuda(dtype):
                                            for m in maps),
                   activation="leaky", emit_stats=False)
         stats = dict(kw, activation="none", emit_stats=True)
-        want_regime = "f32" if dtype == torch.float32 else regime
+        want_regime = (regime if dtype == torch.bfloat16
+                       else plan(dtype, *shape[1], *shape[2:]).regime)
         for options in (kw, stats):
             before = dict(conv3d_fused.regime_launches)
             got = conv3d_fused(*args, **options)

@@ -481,7 +481,7 @@ def test_softmax_lazy_entropy_matches_jax(chain):
 
 
 def test_box_filter_on_the_card_path_matches_jax(chain):
-    """use_device on every unc map of the tree: the port's float32
+    """use_device on every unc map of the tree: the port's float64
     cumulative-sum box filter (device="cpu") against the JAX package's
     float32 reduce_window at rtol 1e-5, and against the float64 host
     path within the card check's 1e-4 relative."""

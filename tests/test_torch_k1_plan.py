@@ -10,7 +10,8 @@ import torch
 from values_tpu_torch.ops.kernels.conv3d import (SMEM_LIMIT, _row_stride,
                                                  concat_groups,
                                                  conv3d_fused_reference,
-                                                 flip_transpose_weight, plan)
+                                                 flip_transpose_weight, plan,
+                                                 plan_dx)
 
 F = 8  # the UNet3D's initial filter size
 # (name, volume, Cin1, Cin2, Cout) of the 18 3x3x3 convs of the fused
@@ -101,9 +102,34 @@ def test_plan_raises_where_no_regime_takes_the_shape(dtype, cin1, cin2,
 
 
 def test_float32_always_takes_the_cuda_core_kernel():
-    for cin1, cin2, cout in ((1, 0, 8), (24, 0, 12), (8, 8, 8)):
+    """A float32 shape that no tensor-core regime takes (Cin 1, Cout not
+    a multiple of 8) runs the CUDA-core kernel, forward and dx alike."""
+    for cin1, cin2, cout in ((1, 0, 8), (24, 0, 12)):
         assert plan(torch.float32, 8, 8, 8, 2, cin1, cin2, cout).regime \
             == "f32"
+        assert plan_dx(torch.float32, 8, 8, 8, 2, cin1 + cin2,
+                       cout).regime == "f32"
+
+
+@pytest.mark.parametrize("dims,cin1,cin2,cout,regime", [
+    ((8, 8, 8), 1, 0, 8, "f32"),          # the first conv
+    ((8, 8, 8), 8, 0, 12, "f32"),         # Cout not a multiple of 8
+    ((8, 8, 8), 24, 0, 8, "f32"),         # Cin / 8 not a power of two
+    ((8, 8, 8), 8, 4, 8, "f32"),          # Cin2 not a multiple of 8
+    ((8, 8, 8), 8, 8, 8, "tf32x3"),
+    ((64, 64, 64), 8, 8, 8, "tf32x3"),    # test_3d's expand_1_1
+    ((4, 4, 4), 128, 0, 128, "tf32x3"),   # the center conv
+    ((9, 12, 10), 64, 0, 32, "tf32x3")])
+def test_float32_regime(dims, cin1, cin2, cout, regime):
+    """float32 takes ``tf32x3`` where bfloat16 would take a tensor-core
+    regime, and keeps the CUDA-core ``f32`` kernel elsewhere; a
+    ``tf32x3`` launch fits shared memory with the tile it names."""
+    launch = plan(torch.float32, *dims, 5, cin1, cin2, cout)
+    assert launch.regime == regime
+    if regime == "tf32x3":
+        assert launch.tile in TILES.values() and launch.tile != (8, 8, 32)
+        assert cout % launch.block_n == 0
+        assert 0 < launch.smem_bytes <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("tile,stride", [((4, 8, 16), 24), ((2, 8, 16), 24),

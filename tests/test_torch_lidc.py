@@ -32,6 +32,19 @@ def _ratings(rng, lo, hi):
     return [int(v) for v in rng.randint(lo, hi, size=4)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_lib():
+    """The JAX package's native library, built once from this thread
+    before any JAX datamodule exists. Its loader is not thread-safe on a
+    first build (ROADMAP.md fault R9): a loader thread that asks while
+    another builds gets None and takes the numpy fallback, whose noise
+    stream is not the native one. Loaded here, every comparison is native
+    against native."""
+    lib = jax_native.get_lib()
+    assert lib is not None, "the JAX package's native library did not load"
+    return lib
+
+
 @pytest.fixture(scope="module")
 def lidc_root(tmp_path_factory):
     """24 patients of 3 nodules, 4 rater masks each, and a metadata.csv

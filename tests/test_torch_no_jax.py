@@ -1,5 +1,5 @@
-"""The port stands alone: no module of values_tpu_torch, nor chip_smoke,
-imports jax or the JAX package (nor yaml, until a config is composed),
+"""The port stands alone: no module of values_tpu_torch, nor chip_smoke
+or the port's probe script, imports jax or the JAX package (nor yaml, until a config is composed),
 nor scikit-learn or pandas, which the card's machine lacks; and its entry
 points refuse to run on the CPU unless asked to."""
 import ast
@@ -13,7 +13,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "values_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "scripts" / "probe_k1_cuda.py"]
 
 
 def _module_names():

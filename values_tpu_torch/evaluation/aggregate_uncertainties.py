@@ -8,8 +8,12 @@ aggregate_uncertainties.py:13-96):
   max and the first (lexicographic) near-max bounding box (np.isclose).
   On the host it is scipy's float64 convolution, as in the JAX package;
   with ``use_device=True`` the box sum runs on ``device`` (default: the
-  CUDA card) in float32 through ``ops/aggregation.py::box_filter_sum``,
-  where the JAX package runs XLA's float32 ``reduce_window``,
+  CUDA card) through ``ops/aggregation.py::box_filter_sum``, where the
+  JAX package runs XLA's float32 ``reduce_window``: in float64, since the
+  float32 prefix sums of a 64^3 map are off by up to ~1e-6 of a box's
+  sum, which moves the first near-max box across np.isclose's 1e-5 edge
+  on a near-uniform map (an H100 run picked a box 10 voxels from the
+  host's),
 - image_level: sum (or mean),
 - threshold: mean of the values >= threshold (the threshold read per
   (pred_model, unc class) from ``threshold_analysis.json``); the sum
@@ -32,8 +36,8 @@ from .experiment_dataloader import ExperimentDataloader
 
 def _box_filter_sum(image: np.ndarray, patch_shape, device=None
                     ) -> np.ndarray:
-    """The 'valid' box-filter sum of ``image`` in float32 on ``device``."""
-    x = torch.from_numpy(np.ascontiguousarray(image, dtype=np.float32))
+    """The 'valid' box-filter sum of ``image`` in float64 on ``device``."""
+    x = torch.from_numpy(np.ascontiguousarray(image, dtype=np.float64))
     x = x.to(resolve_device(device))
     out = box_filter_sum(x, patch_shape, range(x.ndim))
     return out.cpu().numpy()

@@ -11,8 +11,17 @@ are plain NDHWC and the weight is the grouped DHWIO kernel of
 and the shape alone, before the launch; a shape that no regime takes
 raises, and nothing falls back after a failed build or launch:
 
-- ``f32``: float32, any shape. CUDA cores in full float32, one block per
-  (item, group, 8 output channels, 4x8x8 voxels).
+- ``tf32x3``: float32 where the tensor-core regimes below take the shape
+  (Cin1, Cin2 and Cout multiples of 8, Cin / 8 a power of two): their
+  implicit GEMM in the 3xTF32 split (each float32 operand as a TF32 big
+  part and a TF32 rest, three ``mma.sync`` m16n8k8 products, float32
+  accumulation; float32's accuracy on the tensor cores). The one-tile-a-
+  block kernel of ``tile16``/``tile8``/``tile4``: bfloat16's tile where
+  two of its blocks fit an SM (a float32 tile is twice the bytes), else
+  the next smaller tile that does, else the smallest that fits.
+- ``f32``: float32, any other shape (Cin = 1, the first conv). CUDA cores
+  in full float32, one block per (item, group, 8 output channels, 4x8x8
+  voxels).
 - ``cin1``: bfloat16, one input channel per group (the first conv),
   Cout a multiple of 8. CUDA cores in float32; an 8x8x32 tile of all
   groups staged once per block, 8 voxels along D and 4 output channels
@@ -54,9 +63,11 @@ plain version for CPU tensors; it never falls back from one to the other.
 K1b, the training form (:func:`conv3d_fused_train`, the autograd
 :class:`Conv3dFusedFn`), is the port of the custom VJP around the TPU
 kernel (``conv3d.py::_banded_packed_ad`` and ``_banded_packed_ad_stats``,
-:888-1208). Its forward is K1 without ``x2`` or prologue; its backward
-runs K1 again for dx. Autograd through :func:`conv3d_fused_reference` is
-its plain version.
+:888-1208). Its forward is K1 without ``x2`` or prologue; its backward's
+dx is one launch of the library's dx entry (:func:`conv3d_fused_dx`,
+regime by :func:`plan_dx`): the fold of the cotangent, the conv on the
+forward's weight read flipped, the folded cotangent for dW and db.
+Autograd through :func:`conv3d_fused_reference` is its plain version.
 """
 from __future__ import annotations
 
@@ -75,7 +86,7 @@ SOURCES = ("conv3d_fused.cu",)
 
 # regime -> the C entry's kernel id
 REGIMES = {"f32": 0, "cin1": 1, "shallow": 3, "tile16": 2, "tile8": 2,
-           "tile4": 2}
+           "tile4": 2, "tf32x3": 4}
 SMEM_LIMIT = 232448          # bytes of shared memory a block may use
 # ``shallow`` takes a shape when two of its blocks fit an SM's shared
 # memory: at one block an SM it lost to ``tile16`` on the card
@@ -86,6 +97,7 @@ _N_STAGE = 3
 _K_CHUNK = 64
 _BLOCK_N = (32, 16, 8)
 _CIN1_TILE = (8, 8, 32)
+_TILES = {"tile16": (2, 8, 16), "tile8": (4, 8, 8), "tile4": (4, 4, 4)}
 
 
 class Plan(NamedTuple):
@@ -118,64 +130,113 @@ def _row_stride(td, th, tw):
     return hwd
 
 
-def _halo_bytes(tile, cin):
-    """The staged haloed input tile: 16-byte units of 8 channels per
-    voxel, at the padded row stride."""
-    return (tile[0] + 2) * (tile[1] + 2) * _row_stride(*tile) * cin * 2
+def _halo_bytes(tile, cin, size=2):
+    """The staged haloed input tile: 16-byte units of 16 / size channels
+    per voxel, at the padded row stride."""
+    return (tile[0] + 2) * (tile[1] + 2) * _row_stride(*tile) * cin * size
 
 
 def _round_up(n, a):
     return -(-n // a) * a
 
 
-def _mma_plan(regime, tile, bn, cin):
+def _weight_stage_bytes(rows, bn, size, dx):
+    """conv3d_fused.cu's w_stage_bytes: bf16 (k, n) rows; f32 (k, n) rows
+    padded to BN + 8 words (BN 8: 8); the dx entry's (n, k) rows of
+    rows / (16 / size) units and one of padding."""
+    if dx:
+        return bn * (rows * size // 16 + 1) * 16
+    if size == 4:
+        return rows * (bn + (0 if bn == 8 else 8)) * 4
+    return rows * bn * 2
+
+
+def _mma_plan(regime, tile, bn, cin, size=2, dx=False):
     """conv3d_fused.cu's mma_smem_bytes: a ring of weight chunks, the
-    haloed tile, a zero row, the tap offsets and the statistics' sums."""
+    haloed tile (in float32 above 4x4x4 voxels twice: its TF32 big parts
+    and its rests, conv3d_fused.cu::presplit), a zero row, the tap
+    offsets, the statistics' sums and, for the dx entry, its db sums."""
     bm = tile[0] * tile[1] * tile[2]
-    return Plan(regime, tile, bn, _K_CHUNK, _N_STAGE * _K_CHUNK * bn * 2
-                + _halo_bytes(tile, cin) + 16 + 128
-                + 8 * _mma_warps_m(bm, bn) * bn)
+    presplit = size == 4 and bm > 64
+    return Plan(regime, tile, bn, _K_CHUNK,
+                _N_STAGE * _weight_stage_bytes(_K_CHUNK, bn, size, dx)
+                + (2 if presplit else 1) * _halo_bytes(tile, cin, size)
+                + 16 + 128
+                + 8 * _mma_warps_m(bm, bn) * bn
+                + (_round_up(4 * cin, 16) if dx else 0))
 
 
-def _shallow_plan(bn, cin1, cin2):
+def _shallow_plan(bn, cin1, cin2, dx=False):
     """conv3d_fused.cu's ShallowSmem: the whole weight (K padded to 16
-    rows), two tile buffers of x's and x2's boxes (each 1024-aligned), the
-    output tile, the zero row, the tap offsets, the statistics' sums (4
-    consumer warps), six mbarriers and 1024 bytes of alignment."""
+    rows), two tile buffers of x's and the second box's (x2's, or the dx
+    entry's y) haloed tiles (each 1024-aligned), the output tile, the zero
+    row, the tap offsets, the statistics' sums (4 consumer warps), the dx
+    entry's db sums, six mbarriers and 1024 bytes of alignment."""
     tile = (4, 8, 16) if bn == 8 else (2, 8, 16)
     bm = tile[0] * tile[1] * tile[2]
     k_pad = _round_up(27 * (cin1 + cin2), 16)
-    buffer = sum(_round_up(_halo_bytes(tile, c), 1024) for c in (cin1, cin2))
+    boxes = (cin1, cin1) if dx else (cin1, cin2)
+    buffer = sum(_round_up(_halo_bytes(tile, c), 1024) for c in boxes)
     out = _round_up(bm * bn * 2, 128)
-    smem = (_round_up(k_pad * bn * 2, 1024) + 2 * buffer + out + 16 + 128
-            + _round_up(8 * 4 * bn, 16) + 48 + 1024)
+    smem = (_round_up(_weight_stage_bytes(k_pad, bn, 2, dx), 1024)
+            + 2 * buffer + out + 16 + 128 + _round_up(8 * 4 * bn, 16)
+            + (_round_up(4 * cin1, 16) if dx else 0) + 48 + 1024)
     return Plan("shallow", tile, bn, k_pad, smem)
 
 
-@functools.lru_cache(maxsize=None)
-def plan(dtype: torch.dtype, d: int, h: int, w: int, groups: int,
-         cin1: int, cin2: int, cout: int) -> Plan:
-    """The K1 launch for this dtype and shape (see the module docstring).
-    Raises ValueError for a shape that no regime takes."""
+def _tensor_core_shape(cin1, cin2, cout):
+    """Cin1, Cin2 and Cout multiples of 8, Cin / 8 a power of two."""
     cin = cin1 + cin2
-    if dtype == torch.float32:  # channel chunks of 1 or 8, static memory
+    return not (cout % 8 or cin1 % 8 or cin2 % 8 or cin == 0
+                or (cin // 8) & (cin // 8 - 1))
+
+
+def _tf32x3_plan(h, w, cin1, cin2, cout, dx):
+    """The tensor-core tile for float32: bfloat16's tile, or the next
+    smaller one, the first whose (twice as large) staging lets two blocks
+    share an SM; else the one of least shared memory that fits; None if
+    none fits."""
+    cin = cin1 + cin2
+    bn = next(n for n in _BLOCK_N if cout % n == 0)
+    names = (["tile16"] if w >= 16 and h >= 8 else []) + \
+        (["tile8"] if w >= 8 and h >= 8 else []) + ["tile4"]
+    found = [_mma_plan("tf32x3", _TILES[name],
+                       64 if name == "tile4" and cout % 64 == 0 else bn,
+                       cin, 4, dx) for name in names]
+    for limit in (SHALLOW_SMEM, SMEM_LIMIT):
+        fits = [f for f in found if f.smem_bytes <= limit]
+        if fits:
+            return fits[0] if limit == SHALLOW_SMEM else min(
+                fits, key=lambda f: f.smem_bytes)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(dtype, d, h, w, groups, cin1, cin2, cout, dx):
+    cin = cin1 + cin2
+    if dtype == torch.float32:
+        if _tensor_core_shape(cin1, cin2, cout):
+            found = _tf32x3_plan(h, w, cin1, cin2, cout, dx)
+            if found is not None:
+                return found
+        # CUDA cores: channel chunks of 1 or 8, static memory
         ck = 1 if cin == 1 else 8
         return Plan("f32", (4, 8, 8), 8, 27 * ck,
-                    ck * 600 * 4 + 27 * ck * 8 * 4 + 512)
+                    ck * 600 * 4 + 27 * ck * 8 * 4 + 512 + 4 * ck)
     if dtype != torch.bfloat16:
         raise ValueError(f"no K1 regime takes dtype {dtype}")
     if cout % 8:
         raise ValueError(f"no K1 regime takes Cout {cout} (a multiple of 8 "
                          "in bfloat16)")
-    if cin == 1 and cin2 == 0:
+    if cin == 1 and cin2 == 0 and not dx:
         hvox = (_CIN1_TILE[0] + 2) * (_CIN1_TILE[1] + 2) * (_CIN1_TILE[2] + 2)
         found = Plan("cin1", _CIN1_TILE, 8, 27,
                      -(-groups * hvox * 2 // 16) * 16 + 27 * groups * cout * 4
                      + 2 * 8 * 4 * 4)
-    elif cin1 % 8 or cin2 % 8 or cin == 0 or (cin // 8) & (cin // 8 - 1):
+    elif not _tensor_core_shape(cin1, cin2, cout):
         raise ValueError(f"no K1 regime takes Cin {cin1}+{cin2} in bfloat16 "
                          "(1, or multiples of 8 adding up to 8 times a "
-                         "power of two)")
+                         "power of two)" + (" for dx" if dx else ""))
     else:
         bn = next(n for n in _BLOCK_N if cout % n == 0)
         if w >= 16 and h >= 8:
@@ -183,18 +244,36 @@ def plan(dtype: torch.dtype, d: int, h: int, w: int, groups: int,
             found = None
             if bn <= 16 and q1 <= 8 and not q1 & (q1 - 1) \
                     and cin2 in (0, cin1):
-                found = _shallow_plan(bn, cin1, cin2)
+                found = _shallow_plan(bn, cin1, cin2, dx)
             if found is None or found.smem_bytes > SHALLOW_SMEM:
-                found = _mma_plan("tile16", (2, 8, 16), bn, cin)
+                found = _mma_plan("tile16", (2, 8, 16), bn, cin, 2, dx)
         elif w >= 8 and h >= 8:
-            found = _mma_plan("tile8", (4, 8, 8), bn, cin)
+            found = _mma_plan("tile8", (4, 8, 8), bn, cin, 2, dx)
         else:
             found = _mma_plan("tile4", (4, 4, 4), 64 if cout % 64 == 0
-                              else bn, cin)
+                              else bn, cin, 2, dx)
     if found.smem_bytes > SMEM_LIMIT:
         raise ValueError(f"no K1 regime fits Cin {cin}, Cout {cout}, G "
                          f"{groups} in shared memory ({found})")
     return found
+
+
+def plan(dtype: torch.dtype, d: int, h: int, w: int, groups: int,
+         cin1: int, cin2: int, cout: int) -> Plan:
+    """The K1 launch for this dtype and shape (see the module docstring).
+    Raises ValueError for a shape that no regime takes."""
+    return _plan(dtype, d, h, w, groups, cin1, cin2, cout, False)
+
+
+def plan_dx(dtype: torch.dtype, d: int, h: int, w: int, groups: int,
+            cin: int, cout: int) -> Plan:
+    """The launch of K1b's dx entry: the regime :func:`plan` gives the dx
+    conv (``cin`` input channels a group, the forward's Cout; ``cout``
+    output channels, the forward's Cin; no x2), with the entry's shared
+    memory (the weight staged as flipped (n, k) rows, the second box of y
+    in ``shallow``, the db sums). No ``cin1``: no dx has one input
+    channel a group in bfloat16."""
+    return _plan(dtype, d, h, w, groups, cin, 0, cout, True)
 
 
 Prologue = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -340,6 +419,8 @@ conv3d_fused.regime_launches = dict.fromkeys(REGIMES, 0)
 
 
 _SLOPES = {"leaky": 0.01, "relu": 0.0}
+# the dx entry's fold of the cotangent (conv3d_fused.cu: Fold)
+FOLDS = {"none": 0, "leaky": 1, "relu": 2, "stats": 3}
 
 
 def flip_transpose_weight(weight: torch.Tensor, groups: int) -> torch.Tensor:
@@ -352,6 +433,131 @@ def flip_transpose_weight(weight: torch.Tensor, groups: int) -> torch.Tensor:
                                                groups * cin).contiguous()
 
 
+def fold_cotangent(dy: torch.Tensor, y: Optional[torch.Tensor], fold: str,
+                   ds1: Optional[torch.Tensor] = None,
+                   ds2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The cotangent that dx, dW and db take (``conv3d.py:918-928`` and
+    ``:1155-1167``): after an activation ``where(y > 0, dy, slope dy)``
+    (leaky and ReLU keep the sign, so y > 0 iff the pre-activation is);
+    after statistics ``dy + ds1 + 2 y ds2`` in float32 (float64 for a
+    float64 run) rounded to dy's type, as the JAX package does (in
+    bfloat16 a ds1 below half an ulp of dy is lost: ROADMAP.md fault
+    R5)."""
+    if fold == "stats":
+        if ds1 is None and ds2 is None:
+            return dy
+        acc = torch.float64 if dy.dtype == torch.float64 else torch.float32
+        g = dy.to(acc)
+        if ds1 is not None:
+            g = g + ds1[:, None, None, None, :]
+        if ds2 is not None:
+            g = g + 2.0 * y.to(acc) * ds2[:, None, None, None, :]
+        return g.to(dy.dtype)
+    if fold in _SLOPES:
+        return torch.where(y > 0, dy, _SLOPES[fold] * dy)
+    return dy
+
+
+def _bias_sums(g: torch.Tensor) -> torch.Tensor:
+    acc = torch.float64 if g.dtype == torch.float64 else torch.float32
+    return g.to(acc).sum(dim=(0, 1, 2, 3))
+
+
+def conv3d_fused_dx_reference(dy, weight, groups=1, *, y=None, fold="none",
+                              ds1=None, ds2=None, cotangent=False,
+                              bias_grad=False):
+    """The plain version of :func:`conv3d_fused_dx`: the fold in torch,
+    K1's plain version on the flipped, group-transposed weight, db as a
+    float32 sum."""
+    g = fold_cotangent(dy, y, fold, ds1, ds2).contiguous()
+    dx = conv3d_fused_reference(g, flip_transpose_weight(weight, groups),
+                                None, groups)
+    return (dx, g if cotangent else None,
+            _bias_sums(g) if bias_grad else None)
+
+
+def conv3d_fused_dx(dy: torch.Tensor, weight: torch.Tensor, groups: int = 1,
+                    *, y: Optional[torch.Tensor] = None, fold: str = "none",
+                    ds1: Optional[torch.Tensor] = None,
+                    ds2: Optional[torch.Tensor] = None,
+                    cotangent: bool = False, bias_grad: bool = False):
+    """K1b's dx entry: the input gradient of K1 in one launch. dy (B, D,
+    H, W, G*Cout), the forward's weight (3, 3, 3, Cin, G*Cout) in dy's
+    type, y (the forward's output, as dy) where ``fold`` is not "none",
+    ds1 and ds2 (B, G*Cout) float32 or None for the "stats" fold. The
+    kernel folds the cotangent (:func:`fold_cotangent`) as it stages dy,
+    reads the weight flipped and group-transposed, and computes dx (B, D,
+    H, W, G*Cin) in dy's type; with ``cotangent`` it also writes the
+    folded cotangent (what dW takes), with ``bias_grad`` its float32
+    per-channel sums (db, added with atomics: not bitwise reproducible).
+    Returns ``(dx, cotangent or None, db or None)``. The regime is
+    :func:`plan_dx`'s. Each launch counts in ``conv3d_fused_dx.launches``
+    and, as a launch of K1's kernels, in ``conv3d_fused.launches`` and
+    its ``regime_launches``. CPU tensors run
+    :func:`conv3d_fused_dx_reference`."""
+    if fold not in FOLDS:
+        raise ValueError(f"unknown fold {fold!r}")
+    if fold == "stats" and ds1 is None and ds2 is None:
+        fold = "none"
+    if dy.device.type == "cpu":
+        return conv3d_fused_dx_reference(dy, weight, groups, y=y, fold=fold,
+                                         ds1=ds1, ds2=ds2,
+                                         cotangent=cotangent,
+                                         bias_grad=bias_grad)
+    if dy.device.type != "cuda":
+        raise ValueError(f"conv3d_fused_dx runs on cuda or cpu, not "
+                         f"{dy.device}")
+    if dy.dtype not in _DTYPES:
+        raise TypeError(f"conv3d_fused_dx takes float32 or bfloat16, not "
+                        f"{dy.dtype}")
+    if dy.ndim != 5 or weight.ndim != 5 or weight.shape[-1] % groups:
+        raise ValueError(f"dy {tuple(dy.shape)}, weight "
+                         f"{tuple(weight.shape)}: not NDHWC and DHWIO with "
+                         f"{groups} groups")
+    b, d, h, w, _ = dy.shape
+    cin, cout = weight.shape[-1] // groups, weight.shape[3]
+    _check(dy, "dy", (b, d, h, w, groups * cin), dy.dtype, dy.device)
+    _check(weight, "weight", (3, 3, 3, cout, groups * cin), dy.dtype,
+           dy.device)
+    if fold != "none":
+        _check(y, "y", dy.shape, dy.dtype, dy.device)
+    for name, m in (("ds1", ds1), ("ds2", ds2)):
+        if fold == "stats" and m is not None:
+            _check(m, name, (b, groups * cin), torch.float32, dy.device)
+    launch = plan_dx(dy.dtype, d, h, w, groups, cin, cout)
+    if launch.regime != "f32":  # 16-byte copies of dy, y and the weight
+        for name, t in (("dy", dy), ("y", y), ("weight", weight)):
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
+    dx = torch.empty((b, d, h, w, groups * cout), dtype=dy.dtype,
+                     device=dy.device)
+    g = (torch.empty_like(dy) if cotangent and fold != "none" else None)
+    db = (torch.zeros(groups * cin, dtype=torch.float32, device=dy.device)
+          if bias_grad else None)
+    stats = (ds1, ds2) if fold == "stats" else (None, None)
+    lib = load_kernel()
+    with torch.cuda.device(dy.device):  # the launch goes to dy's card
+        rc = lib.conv3d_fused_dx_launch(
+            _DTYPES[dy.dtype], REGIMES[launch.regime], *launch.tile,
+            launch.block_n, dy.data_ptr(),
+            _ptr(None if fold == "none" else y), weight.data_ptr(),
+            *(_ptr(m) for m in stats), FOLDS[fold], dx.data_ptr(), _ptr(g),
+            _ptr(db), b, d, h, w, groups, cin, cout,
+            torch.cuda.current_stream(dy.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3d_fused_dx launch ({launch}) failed with "
+                           f"CUDA error {rc}")
+    conv3d_fused_dx.launches += 1
+    conv3d_fused.launches += 1
+    conv3d_fused.regime_launches[launch.regime] += 1
+    if cotangent and g is None:
+        g = dy
+    return dx, g, db
+
+
+conv3d_fused_dx.launches = 0
+
+
 class Conv3dFusedFn(torch.autograd.Function):
     """K1b: K1 with a backward (``_banded_packed_ad*``'s custom VJP).
 
@@ -359,24 +565,19 @@ class Conv3dFusedFn(torch.autograd.Function):
     (sum, sumsq) statistics of its output. Saved: x, the weight, and the
     output when there is an activation or statistics. Backward:
 
-    1. the activation derivative from the saved output (leaky and ReLU
-       keep the sign, so y > 0 iff the pre-activation is), or the stats
-       cotangents folded in as ``dy + ds1 + 2 y ds2`` in float32 and
-       rounded to dy's type, as the JAX package does (in bfloat16 a ds1
-       below half an ulp of dy is lost: ROADMAP.md fault R5);
-    2. dx: K1 on dy with the flipped, group-transposed weight, only where
-       x needs a gradient;
-    3. dW: the backward-weights contraction, a library call
+    1. dx, where x needs a gradient: :func:`conv3d_fused_dx`, one launch
+       that folds the activation derivative or the statistics' cotangents
+       into dy (:func:`fold_cotangent`), runs K1's regime for the swapped
+       shape on the flipped, group-transposed forward weight, and writes
+       the folded cotangent (for dW) and db; where x needs none (the
+       first conv), the fold and db in torch;
+    2. dW: the backward-weights contraction, a library call
        (``aten.convolution_backward``) on channels-last views of the
        NDHWC tensors, as the JAX package leaves it to XLA (:981-992);
        its float32 precision follows ``torch.backends.cudnn.allow_tf32``
-       like any PyTorch convolution;
-    4. db: Σdy in float32.
+       like any PyTorch convolution.
 
-    On the card dx costs what a K1 forward of the same shape costs: in
-    bfloat16 the tensor-core regimes of :func:`plan` at G = 1 (Cin and
-    Cout swapped, no x2, prologue, bias or statistics), in float32 the
-    CUDA-core kernel. dW is whatever cuDNN picks for the shape and type.
+    On CPU tensors every step is the plain version.
     """
 
     @staticmethod
@@ -404,34 +605,34 @@ class Conv3dFusedFn(torch.autograd.Function):
             return None, None, None, None, None, None
         if dy is None:  # only the statistics were used; y was saved
             dy = torch.zeros_like(y)
-        # float32 sums (float64 for a float64 run, as the plain version)
-        acc = torch.float64 if dy.dtype == torch.float64 else torch.float32
-        if ctx.emit_stats and (ds1 is not None or ds2 is not None):
-            g = dy.to(acc)
-            if ds1 is not None:
-                g = g + ds1[:, None, None, None, :]
-            if ds2 is not None:
-                g = g + 2.0 * y.to(acc) * ds2[:, None, None, None, :]
-            dy = g.to(dy.dtype)
-        if ctx.activation != "none":
-            dy = torch.where(y > 0, dy, _SLOPES[ctx.activation] * dy)
-        dy = dy.contiguous()
+        fold = ctx.activation
+        if ctx.emit_stats:
+            fold = "stats"
+            ds1, ds2 = (None if m is None else m.contiguous()
+                        for m in (ds1, ds2))
         groups = ctx.groups
+        need_dw = ctx.needs_input_grad[1]
+        need_db = ctx.bias_dtype is not None and ctx.needs_input_grad[2]
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = conv3d_fused(dy, flip_transpose_weight(weight, groups),
-                              None, groups)
+            dx, g, db = conv3d_fused_dx(dy.contiguous(), weight, groups,
+                                        y=y, fold=fold, ds1=ds1, ds2=ds2,
+                                        cotangent=need_dw,
+                                        bias_grad=need_db)
             if dy.device.type == "cuda":
                 conv3d_fused_train.launches += 1
-        if ctx.needs_input_grad[1]:
+        else:
+            g = fold_cotangent(dy, y, fold, ds1, ds2).contiguous()
+            db = _bias_sums(g) if need_db else None
+        if need_dw:
             # NDHWC -> (N, C, D, H, W) views in channels-last-3d memory
             _, dw, _ = torch.ops.aten.convolution_backward(
-                dy.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3),
+                g.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3),
                 weight.permute(4, 3, 0, 1, 2), None, [1, 1, 1], [1, 1, 1],
                 [1, 1, 1], False, [0, 0, 0], groups, [False, True, False])
             dw = dw.permute(2, 3, 4, 1, 0).contiguous()
-        if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
-            db = dy.to(acc).sum(dim=(0, 1, 2, 3)).to(ctx.bias_dtype)
+        if db is not None:
+            db = db.to(ctx.bias_dtype)
         return dx, dw, db, None, None, None
 
 
@@ -442,8 +643,9 @@ def conv3d_fused_train(x: torch.Tensor, weight: torch.Tensor,
     Cin, G*Cout) in x's type, bias (G*Cout,) or None. Returns ``out``, or
     ``(out, (sum, sumsq))`` with ``emit_stats`` (then activation must be
     "none"); gradients flow through all of them. On CUDA tensors the
-    backward launches K1 for dx and counts it in ``launches``; on CPU
-    tensors both directions run K1's plain version."""
+    backward launches the dx entry once for dx and counts it in
+    ``launches``; on CPU tensors both directions run the plain
+    versions."""
     res = Conv3dFusedFn.apply(x, weight, bias, groups, activation,
                               emit_stats)
     if emit_stats:
@@ -455,10 +657,16 @@ conv3d_fused_train.launches = 0
 
 
 def load_kernel() -> ctypes.CDLL:
-    """Build (at first use) and load K1's library."""
+    """Build (at first use) and load K1's library (K1 and K1b's dx
+    entry)."""
     lib = load_library("conv3d_fused", SOURCES)
     fn = lib.conv3d_fused_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 10
                    + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    fn = lib.conv3d_fused_dx_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
     return lib
