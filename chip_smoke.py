@@ -295,6 +295,19 @@ def bound(bytes_moved: float, flops: float, dtype: str):
             "operations")
 
 
+@contextlib.contextmanager
+def tf32(enabled: bool):
+    """cuDNN's TF32 switch (PyTorch's default: on) for the block."""
+    import torch
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+
 # -- K1 against its plain version ---------------------------------------------
 
 def k1_inputs(gen, dtype, b, d, h, w, groups, cin1, cin2, cout, prologue):
@@ -1297,6 +1310,42 @@ def run_config_cli(name: str, root: str, version: str, extra: list,
     return ckpt, seconds, launches, losses
 
 
+# P2: cuDNN's weight gradient under PyTorch's default (TF32) against TF32
+# off. dW of a 64^3 conv sums 8 x 64^3 products whose operands TF32 rounds
+# to 10 mantissa bits (2^-11 each); the forward (K1, 3xTF32) and dx (K1b)
+# do not change. Read on an H100 (PR 11): 7.9e-5 of the gradient norm,
+# 3.0e-3 at the worst leaf. Both bounds lie below bfloat16's unit
+# roundoff (2^-8 = 3.9e-3) at the norm and near it at a leaf, so a dW
+# taken at bf16 precision misses them. Random weights make this a weak
+# test of a trained model's gradients.
+TF32_LOSS_BOUND, TF32_GRAD_BOUND, TF32_LEAF_BOUND = 1e-5, 1e-3, 1e-2
+
+
+def p2_against_tf32_off(names, loss, grads, loss_and_grads, card: str):
+    """The same first step under PyTorch's default, cuDNN's TF32 on, held
+    against the TF32-off step: the loss and every gradient leaf but the
+    biases of the convs feeding an instance norm (true gradient 0, both
+    sides roundoff, as in first_step_against_plain)."""
+    with tf32(True):
+        tf_loss, tf_grads = loss_and_grads()
+    pairs = [(n, a, w) for n, a, w in zip(names, tf_grads, grads)
+             if not (n.startswith("contr_") and n.endswith("bias"))]
+    rel = {n: float((a - w).norm() / w.norm()) for n, a, w in pairs}
+    total = float(sum(((a - w) ** 2).sum() for _, a, w in pairs).sqrt()
+                  / sum((w ** 2).sum() for _, _, w in pairs).sqrt())
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(tf_loss - loss) / abs(loss)
+    log(f"P2, the first f32 step under PyTorch's default (cuDNN TF32 on) "
+        f"against TF32 off: loss rel {loss_rel:.2e} (bound "
+        f"{TF32_LOSS_BOUND:g}); gradient error {total:.2e} of the norm "
+        f"(bound {TF32_GRAD_BOUND:g}), largest leaf {rel[worst]:.2e} "
+        f"({worst}; bound {TF32_LEAF_BOUND:g}); card {card}")
+    if (loss_rel > TF32_LOSS_BOUND or total > TF32_GRAD_BOUND
+            or rel[worst] > TF32_LEAF_BOUND):
+        raise AssertionError("the TF32 step is off by more than TF32")
+    return {"loss": loss_rel, "total": total, "worst": rel[worst]}
+
+
 def first_step_against_plain(root: str, card: str):
     """The f32 CLI run's first step -- the same config, seeded weights
     and first batch -- through the kernels and through the plain
@@ -1326,6 +1375,7 @@ def first_step_against_plain(root: str, card: str):
         return loss.item(), torch.autograd.grad(loss, leaves)
 
     got_loss, got = loss_and_grads()
+    p2_against_tf32_off(names, got_loss, got, loss_and_grads, card)
     real = ens.conv3d_fused_train
     ens.conv3d_fused_train = plain_train_conv
     try:
@@ -4219,6 +4269,611 @@ def profile_batch(score, args, label: str, filename: str, head_numel: int):
             f"x{e.count:<4d} {e.key[:90]}")
 
 
+# -- the 2D path: HRNet-W48 through the test_2d CLI --------------------------
+
+# configs/model/hrnet_config.yaml's widths (HRNet-W48), GTA's 24 classes
+# (configs/datamodule/gta_torch_config.yaml) and its val_batch_size; the
+# preprocessed geometry (values_tpu/data/gta_preprocess.py:110-113: a
+# centre crop to 1024x1912, then 0.25x) and the full-resolution one
+GTA_CLASSES, GTA_BATCH, GTA_HW, GTA_FULL_HW = 24, 6, (256, 478), (1024,
+                                                                   1912)
+GTA_IMAGES, GTA_FULL_IMAGES, GTA_MEMBERS, GTA_N_PRED = 12, 2, 5, 10
+GTA_SEED = 123            # the checkpoints' hparams["seed"]
+TIMED_FORWARDS = 10
+# |dlogits| of the card's float32 forward (TF32 off) against the CPU's, as
+# a share of max|logits|: float32 accumulations in another order and
+# another algorithm, over HRNet-W48's depth
+F32_CARD_BOUND = 1e-4
+# The TF32 default against TF32 off, as a share of max|logits|: TF32
+# rounds each conv's operands to 11 significant bits (2^-11), and random
+# calibrated weights amplify that through HRNet-W48's ~100 convs. Read on
+# an H100 (PR 11): 7.27e-2, against bf16's 0.446 on the same batch (a
+# ratio of 0.16; bf16 rounds 8x coarser and stores every activation
+# rounded). The bound is twice the reading and a third of bf16's error,
+# so a forward at bf16 precision misses it. A trained checkpoint's error
+# is not measured (its weights would need a download).
+TF32_LOGIT_BOUND = 0.15
+# bfloat16 |dsoftmax| against float32: the JAX package's mean limit for
+# its small HRNet (5e-3, tests/test_2d_path.py), read at 4.65e-3 on an
+# H100 (PR 11); a max of 0.5: single pixels near a decision edge move by
+# a large share of their probability (read 8.3e-2)
+BF16_MEAN_BOUND, BF16_MAX_BOUND = 5e-3, 0.5
+# the families and their sample counts per image (S)
+GTA_RUNS = (("softmax", "float32", "id"), ("softmax", "float32", "ood"),
+            ("softmax", "bfloat16", "ood"), ("ensemble", "float32", "ood"),
+            ("ensemble", "bfloat16", "ood"), ("dropout", "float32", "ood"),
+            ("tta", "float32", "ood"), ("ssn", "float32", "ood"),
+            ("sliding", "float32", "id"))
+GTA_SAMPLES = {"softmax": 1, "ensemble": GTA_MEMBERS, "dropout": GTA_N_PRED,
+               "tta": 4, "ssn": GTA_N_PRED, "sliding": 1}
+# device kernels by family, matched on the lower-cased kernel name, first
+# match wins
+KERNEL_FAMILIES = (
+    ("bilinear resize", ("upsample_bilinear", "upsample")),
+    ("BN", ("batch_norm", "batchnorm", "bn_fw")),
+    ("softmax", ("softmax",)),
+    ("copies", ("copy", "memcpy", "memset", "cat")),
+    ("cuDNN conv", ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90",
+                    "cutlass", "winograd", "fft", "nhwc", "nchw")),
+    ("C2/GED (reductions, sort, indexing)", ("reduce", "sum", "max", "arg",
+                                             "index", "scan", "sort",
+                                             "where", "log")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def write_gta_tree(root: str, n_gta: int, n_cs: int, hw, seed: int) -> str:
+    """A synthetic preprocessed GTA/Cityscapes tree in
+    tests/test_2d_path.py::make_gta_tree's layout: uint8 (H, W, 3) images
+    and int64 masks of train ids 0-18 in 16 x 16 blocks, with ignore (255)
+    rows at the top; GTA images make ``id_test``, Cityscapes ``ood_test``
+    (and the first of each ``val`` and the unlabeled pools)."""
+    rs = np.random.RandomState(seed)
+    h, w = hw
+    names = {"gta": [f"{i:05d}.npy" for i in range(n_gta)],
+             "cs": [f"city_{i:03d}.npy" for i in range(n_cs)]}
+    for ds, sub in (("gta", "OriginalData"), ("cs",
+                                              "CityScapesOriginalData")):
+        for kind in ("images", "labels"):
+            os.makedirs(os.path.join(root, sub, "preprocessed", kind),
+                        exist_ok=True)
+        for name in names[ds]:
+            np.save(os.path.join(root, sub, "preprocessed", "images", name),
+                    rs.randint(0, 256, (h, w, 3)).astype(np.uint8))
+            blocks = rs.randint(0, 19, (-(-h // 16), -(-w // 16)))
+            mask = np.kron(blocks, np.ones((16, 16), np.int64))[:h, :w]
+            mask[:h // 32] = 255
+            np.save(os.path.join(root, sub, "preprocessed", "labels", name),
+                    mask.astype(np.int64))
+    splits = [{"train": [], "val": [(names["gta"][0], "gta")],
+               "id_test": [(n, "gta") for n in names["gta"]],
+               "ood_test": [(n, "cs") for n in names["cs"]],
+               "id_unlabeled_pool": [(names["gta"][0], "gta")],
+               "ood_unlabeled_pool": [(names["cs"][0], "cs")]}]
+    path = os.path.join(root, "splits", "firstCycle", "splits.pkl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(splits, f)
+    return path
+
+
+def gta_hparams(config: str, root: str, splits: str, extra=()) -> dict:
+    """A GTA config at its published widths, composed by the port as the
+    training CLI composes it, pointed at ``root``."""
+    from values_tpu_torch.config import compose
+    cfg = compose(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "configs"), config,
+                  [f"data_input_dir={root}", f"save_dir={root}/exp",
+                   "version=0", f"seed={GTA_SEED}",
+                   f"datamodule.dataset.splits_path={splits}"] + list(extra))
+    return cfg.to_container()
+
+
+def calibrated_hrnet(hparams: dict, seed: int, calib):
+    """HRNet-W48 with random weights from ``seed`` (torch's default conv
+    init) and BatchNorm running statistics taken over ``calib`` (a
+    cumulative average of train-mode batch statistics), so that each BN
+    normalizes as a trained network's would; returned in eval mode."""
+    import torch
+    from values_tpu_torch.models.hrnet import HighResolutionNet
+    torch.manual_seed(seed)
+    with torch.device(calib[0].device):
+        model = HighResolutionNet(hparams["model"]["cfg"])
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = None
+    model.train()
+    gen = torch.Generator(calib[0].device).manual_seed(seed)
+    with torch.no_grad(), tf32(False):
+        for x in calib:
+            model(x, generator=gen)
+    return model.eval()
+
+
+def write_hrnet_checkpoint(path: str, model, hparams: dict) -> str:
+    """A reference-format ``.ckpt``: the ``model.``-prefixed state_dict
+    and the hparams."""
+    import torch
+    torch.save({"state_dict": {"model." + k: v.cpu() for k, v in
+                               model.state_dict().items()},
+                "hyper_parameters": hparams}, path)
+    return path
+
+
+def read_tiff_float32(path: str, h: int, w: int) -> np.ndarray:
+    """The map of a TIFF written by ``core.image_io.write_tiff_float32``
+    (one strip at offset 8)."""
+    return np.fromfile(path, dtype="<f4", count=h * w, offset=8).reshape(h,
+                                                                         w)
+
+
+def check_2d_tree(base: str, family: str, split_ids, hw) -> None:
+    """Every image's PNGs (the mean and each of S predictions, or the one),
+    TIFs (PE, aleatoric, epistemic; 1 - MSR alone for S = 1) and
+    metrics.json entry; PE in [0, log 25], MI >= -1e-6, every map finite,
+    Dice in [0, 1]."""
+    import math
+    import struct
+    s = GTA_SAMPLES[family]
+    metrics = json.load(open(os.path.join(base, "metrics.json")))
+    if sorted(metrics) != sorted(list(split_ids) + ["mean"]):
+        raise AssertionError(f"{base}: metrics.json holds {sorted(metrics)}")
+    pngs = (["mean"] + [f"{i:02d}" for i in range(1, s + 1)] if s > 1
+            else ["01"])
+    maps = (["pred_entropy", "aleatoric_uncertainty",
+             "epistemic_uncertainty"] if s > 1 else ["pred_entropy"])
+    mi = {"dropout": "epistemic_uncertainty", "ensemble":
+          "epistemic_uncertainty", "tta": "epistemic_uncertainty",
+          "ssn": "aleatoric_uncertainty"}.get(family)
+    h, w = hw
+    for image_id in split_ids:
+        entry = metrics[image_id]["metrics"]
+        if sorted(entry) != ["dice", "ged"] or not 0 <= entry["dice"] <= 1 \
+                or not np.isfinite(entry["ged"]):
+            raise AssertionError(f"{base}: {image_id} metrics {entry}")
+        for p in pngs:
+            path = os.path.join(base, "pred_seg", f"{image_id}_{p}.png")
+            with open(path, "rb") as f:
+                head = f.read(24)
+            if head[:8] != b"\x89PNG\r\n\x1a\n" or struct.unpack(
+                    ">II", head[16:24]) != (w, h):
+                raise AssertionError(f"{path}: not a {w}x{h} PNG")
+        for name in maps:
+            arr = read_tiff_float32(os.path.join(base, name,
+                                                 f"{image_id}.tif"), h, w)
+            if not np.isfinite(arr).all():
+                raise AssertionError(f"{base}/{name}/{image_id}: not finite")
+            if name == "pred_entropy" and s > 1 and not (
+                    arr.min() >= 0 and arr.max() <= math.log(25) + 1e-5):
+                raise AssertionError(f"{base}: PE in [{arr.min()}, "
+                                     f"{arr.max()}]")
+            if name == mi and arr.min() < -1e-6:
+                raise AssertionError(f"{base}: MI {arr.min()}")
+    if sorted(os.listdir(base)) != sorted(maps + ["metrics.json",
+                                                  "pred_seg"]):
+        raise AssertionError(f"{base}: {sorted(os.listdir(base))}")
+
+
+def conv_flops(model, x) -> float:
+    """Multiply-adds x 2 of every conv of one forward of ``x`` (the 1x1
+    head included), from each conv's output shape."""
+    import torch
+    total = [0.0]
+
+    def hook(m, _inp, out):
+        k = m.kernel_size[0] * m.kernel_size[1] * m.in_channels // m.groups
+        total[0] += 2.0 * out.numel() * k
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        model(x, generator=torch.Generator(x.device).manual_seed(0))
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def kernel_families(table) -> dict:
+    """Device ms by KERNEL_FAMILIES of a profiler table."""
+    out = {}
+    for e in table:
+        if "CUDA" not in str(e.device_type) or e.self_device_time_total <= 0:
+            continue
+        name = e.key.lower()
+        family = next((f for f, keys in KERNEL_FAMILIES
+                       if any(k in name for k in keys)), "other")
+        out[family] = out.get(family, 0.0) + e.self_device_time_total / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def host_ops(table, n: int = 6) -> str:
+    """The host side of a profiler table: the ops' summed self CPU time
+    and the ``n`` largest by it, with their counts and time per call."""
+    events = sorted((e for e in table if e.self_cpu_time_total > 0),
+                    key=lambda e: -e.self_cpu_time_total)
+    total = sum(e.self_cpu_time_total for e in events) / 1e3
+    return f"self CPU {total:.2f} ms; " + ", ".join(
+        f"{e.key[:40]} x{e.count} {e.self_cpu_time_total / 1e3:.2f} ms "
+        f"({e.self_cpu_time_total / e.count:.1f} us each)"
+        for e in events[:n])
+
+
+def forward_numbers(model, x, dtype_name: str, allow_tf32: bool,
+                    flops: float, card: str) -> dict:
+    """HRNet-W48's forward over one batch: images/s (median and min-max
+    of TIMED_FORWARDS host-clock runs, each ending in a synchronize), the
+    CUDA-event median, achieved TFLOP/s, the least time at the card's
+    peak for the type, peak memory; one profiled forward's device time
+    and its host side (the ops' self CPU time)."""
+    import torch
+    peak = {("float32", True): "tf32", ("float32", False): "float32",
+            ("bfloat16", True): "bfloat16"}[(dtype_name, allow_tf32)]
+    with torch.no_grad(), tf32(allow_tf32):
+        for _ in range(2):
+            model(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(TIMED_FORWARDS):
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        event_ms = cuda_ms(lambda: model(x), reps=TIMED_FORWARDS)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        table = prof.key_averages()
+        busy_ms = sum(kernel_families(table).values())
+    rates = sorted(x.shape[0] / t for t in times)
+    least_ms = flops / PEAK_FLOPS[peak] * 1e3
+    out = {"images_per_s": statistics.median(rates), "min": rates[0],
+           "max": rates[-1], "event_ms": event_ms,
+           "tflops": flops / event_ms / 1e9, "least_ms": least_ms,
+           "peak_tflops": PEAK_FLOPS[peak] / 1e12, "peak_gb": peak_gb,
+           "busy_ms": busy_ms, "wall_ms": wall_ms}
+    log(f"HRNet-W48 forward {dtype_name}"
+        f"{' (TF32 default)' if dtype_name == 'float32' and allow_tf32 else ''}"
+        f"{' (TF32 off)' if not allow_tf32 else ''}, batch {x.shape[0]} x "
+        f"{x.shape[2]}x{x.shape[3]}: {out['images_per_s']:.2f} images/s "
+        f"(median of {TIMED_FORWARDS}, {rates[0]:.2f}-{rates[-1]:.2f}); "
+        f"CUDA events {event_ms:.3f} ms a batch, {out['tflops']:.1f} "
+        f"TFLOP/s of {flops / 1e12:.3f} TFLOP; least time at "
+        f"{out['peak_tflops']:.0f} TFLOP/s {least_ms:.3f} ms "
+        f"({least_ms / event_ms:.1%} of it); peak memory {peak_gb:.2f} GB; "
+        f"one profiled forward: device {busy_ms:.2f} ms of {wall_ms:.2f} ms "
+        f"wall, idle share {1 - busy_ms / max(wall_ms, 1e-9):.3f}; host "
+        f"{host_ops(table)}; card {card}")
+    return out
+
+
+def profile_2d_batch(tester, model, x, label: str, card: str) -> dict:
+    """One batch as the tester runs it (forward, softmax, per-image C2,
+    Dice and GED, PNG/TIF writes) under torch.profiler: device time by
+    kernel family and the idle share; the table to build/chip_smoke."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    gt = np.zeros((x.shape[0], 5) + tuple(x.shape[2:]), np.int64)
+    ids = [f"profile_{label}_{i}" for i in range(x.shape[0])]
+
+    def batch():
+        with torch.inference_mode(), tf32(True):  # the CLI's default
+            tester.process_output({
+                "softmax_pred": torch.stack([tester._forward(model, x)]),
+                "image_id": ids, "gt": gt, "dataset": ["gta"] * len(ids)},
+                is_ssn=False)
+
+    batch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batch()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    table = prof.key_averages()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"profile_2d_{label}.txt"), "w") as fh:
+        fh.write(table.table(sort_by="self_device_time_total",
+                             row_limit=40, max_name_column_width=120))
+    families = kernel_families(table)
+    busy = sum(families.values())
+    if not busy:
+        log(f"profile 2D {label}: no device time recorded (not measured)")
+        return {}
+    log(f"profile of one 2D {label} batch ({x.shape[0]} images, the "
+        f"tester's forward, C2, Dice, GED and writes): device {busy:.2f} ms"
+        f" of {wall:.2f} ms wall, idle share {1 - busy / wall:.3f} "
+        f"(profiler on); by family: " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in families.items())
+        + f"; host {host_ops(table)}; card {card}")
+    return {"device_ms": busy, "wall_ms": wall, "families": families}
+
+
+def plain_sliding_map(model, image, patch, overlap: float):
+    """The regular padded grid of SlidingPredictor2D computed plainly: the
+    padded image by numpy, one window at a time through the model,
+    accumulated by slicing, divided by counts accumulated alike."""
+    import torch
+    ph, pw = patch
+    h, w = image.shape[1:]
+    sh, sw = (max(1, int(p * overlap)) for p in patch)
+    while ph % sh:
+        sh -= 1
+    while pw % sw:
+        sw -= 1
+    hp = ph + -(-max(h - ph, 0) // sh) * sh
+    wp = pw + -(-max(w - pw, 0) // sw) * sw
+    host = image.cpu().numpy()
+    if hp > h or wp > w:
+        mode = "reflect" if hp - h < h and wp - w < w else "edge"
+        host = np.pad(host, ((0, 0), (0, hp - h), (0, wp - w)), mode=mode)
+    padded = torch.from_numpy(host).to(image.device)
+    acc = torch.zeros((GTA_CLASSES, hp, wp), device=image.device)
+    cnt = torch.zeros((hp, wp), device=image.device)
+    for a in range(0, hp - ph + 1, sh):
+        for b in range(0, wp - pw + 1, sw):
+            win = padded[None, :, a:a + ph, b:b + pw].contiguous(
+                memory_format=torch.channels_last)
+            p = torch.softmax(model(win).float(), dim=1)[0]
+            acc[:, a:a + ph, b:b + pw] += p
+            cnt[a:a + ph, b:b + pw] += 1.0
+    return (acc / cnt)[:, :h, :w]
+
+
+def twod_checks(model, ssn_model, x, card: str) -> dict:
+    """The card's HRNet-W48 against the port's CPU path on one batch, the
+    TF32 default against TF32 off, bf16 against f32, each against its bound
+    above; the bounds missed under ``misses``."""
+    import copy
+    import torch
+    from values_tpu_torch.inference.test_2d import Tester2D
+    from values_tpu_torch.ops import metrics as M
+    from values_tpu_torch.ops import uncertainty as U
+    cpu = copy.deepcopy(model).cpu().to(memory_format=torch.contiguous_format)
+    x_cpu = x.cpu().contiguous()
+    gt = torch.from_numpy(np.random.RandomState(5).randint(
+        0, GTA_CLASSES, (x.shape[0], 2) + tuple(x.shape[2:])))
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = cpu(x_cpu)
+        cpu_s = time.perf_counter() - t0
+        with tf32(False):
+            off = model(x)
+        with tf32(True):
+            on = model(x)
+        bf = copy.deepcopy(model).to(torch.bfloat16)(
+            x.to(torch.bfloat16)).float()
+
+    def outputs(logits):
+        """softmax, 1 - MSR, per-image Dice (the tester's extra-class
+        form) and GED of one pass, on the logits' device."""
+        p = torch.softmax(logits, dim=1)
+        ext = torch.cat([p, p.new_zeros((p.shape[0], 1) + p.shape[2:])], 1)
+        g = gt.to(p.device)
+        dice = torch.stack([Tester2D.calculate_test_metrics(ext[i], g[i])[
+            "dice"] for i in range(p.shape[0])])
+        ged = torch.stack([M.generalized_energy_distance(
+            ext[i:i + 1], g[i], ignore_index=GTA_CLASSES,
+            ged_only=True)["ged"] for i in range(p.shape[0])])
+        return {"softmax": p, "1-MSR": U.one_minus_msr(p, 1)["pred_entropy"],
+                "dice": dice, "ged": ged}
+
+    scale = float(want.abs().max())
+    card_err = float((off.cpu() - want).abs().max()) / scale
+    tf32_err = float((on - off).abs().max()) / scale
+    o_cpu, o_off, o_on = outputs(want), outputs(off), outputs(on)
+    o_err = {k: float((o_off[k].cpu().double() - o_cpu[k].double()).abs()
+                      .max()) for k in o_cpu}
+    on_err = {k: float((o_on[k].double() - o_off[k].double()).abs().max())
+              for k in o_off}
+    dp = (torch.softmax(bf, 1) - o_off["softmax"]).abs()
+    bf_mean, bf_max = float(dp.mean()), float(dp.max())
+    bf_logits = float((bf - off).abs().max()) / scale
+    with torch.no_grad(), tf32(False):
+        ssn_card = ssn_model(x, mean_only=True).mean
+        ssn_cpu = copy.deepcopy(ssn_model).cpu().to(
+            memory_format=torch.contiguous_format)(x_cpu,
+                                                   mean_only=True).mean
+    ssn_err = float((ssn_card.cpu() - ssn_cpu).abs().max()) / float(
+        ssn_cpu.abs().max())
+    log(f"2D checks, HRNet-W48 batch {x.shape[0]} x {x.shape[2]}x"
+        f"{x.shape[3]}, max|logits| {scale:.3f}: card f32 (TF32 off) "
+        f"against the CPU forward ({cpu_s:.1f} s) {card_err:.2e} of "
+        f"max|logits| (bound {F32_CARD_BOUND:g}); softmax, 1-MSR, Dice, GED "
+        f"worst {json.dumps({k: float(f'{v:.3e}') for k, v in o_err.items()})}"
+        f" (bound 1e-4); the TF32 default against TF32 off {tf32_err:.2e} "
+        f"of max|logits| (bound {TF32_LOGIT_BOUND:g}; bf16's {bf_logits:.2e},"
+        f" a ratio of {tf32_err / bf_logits:.3f}), outputs "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in on_err.items()})};"
+        f" bf16 against f32 |dsoftmax| mean {bf_mean:.2e} (bound "
+        f"{BF16_MEAN_BOUND:g}) max {bf_max:.2e} (bound {BF16_MAX_BOUND:g}); "
+        f"the SSN mean head against its CPU forward {ssn_err:.2e} of "
+        f"max|mean| (bound {F32_CARD_BOUND:g}); card {card}")
+    misses = [what for what, bad in (
+        ("card f32 logits", card_err > F32_CARD_BOUND),
+        ("card f32 outputs", max(o_err.values()) > 1e-4),
+        ("TF32 logits", tf32_err > TF32_LOGIT_BOUND),
+        ("bf16 softmax", bf_mean > BF16_MEAN_BOUND or bf_max > BF16_MAX_BOUND),
+        ("SSN mean head", ssn_err > F32_CARD_BOUND)) if bad]
+    return {"misses": misses, "card_f32": card_err, "outputs": o_err, "tf32_logits": tf32_err,
+            "tf32_outputs": on_err, "bf16_logits": bf_logits,
+            "bf16_mean": bf_mean, "bf16_max": bf_max,
+            "ssn_mean": ssn_err, "cpu_forward_s": cpu_s}
+
+
+def twod_path(card: str) -> dict:
+    """The 2D path at HRNet-W48's published widths on synthetic GTA /
+    Cityscapes trees (12 + 12 images at 256x478; 2 at 1024x1912): random
+    calibrated weights written as reference checkpoints (a softmax model,
+    4 more ensemble members, DROPOUT_FINAL, the SSN at rank 10); every C1
+    family through the test_2d CLI under PyTorch's default (TF32), each
+    tree checked; the card against the CPU path, TF32, bf16; the sliding
+    window against a plain loop; the forward's rates, FLOP/s, memory and
+    profiles. No launch of K1-K3 anywhere in it."""
+    import threading
+    from collections import Counter
+    import torch
+    from values_tpu_torch.inference import test_2d
+    from values_tpu_torch.inference.window2d import SlidingPredictor2D
+    t_phase = time.perf_counter()
+    reset_launches()
+    threads = Counter(re.sub(r"[-_ ]?\d+", "", t.name)
+                      for t in threading.enumerate())
+    log(f"2D: the process's threads at the phase's start, by name: "
+        f"{dict(threads)}; torch CPU threads {torch.get_num_threads()}; "
+        f"load average {os.getloadavg()}")
+    root = tempfile.mkdtemp(dir=OUT_DIR, prefix="gta_")
+    data, full = os.path.join(root, "GTA"), os.path.join(root, "GTA_full")
+    splits = write_gta_tree(data, GTA_IMAGES, GTA_IMAGES, GTA_HW, 0)
+    full_splits = write_gta_tree(full, GTA_FULL_IMAGES, 1, GTA_FULL_HW, 1)
+    hp = {"softmax": gta_hparams("gta_softmax_config", data, splits),
+          "dropout": gta_hparams("gta_softmax_config", data, splits,
+                                 ["model=hrnet_config_dropout_final"]),
+          "ssn": gta_hparams("gta_ssn_config", data, splits)}
+    mean = np.array([0.485, 0.456, 0.406], np.float32) * 255
+    std = np.array([0.229, 0.224, 0.225], np.float32) * 255
+    calib_rs = np.random.RandomState(7)
+    calib = [torch.from_numpy(((calib_rs.randint(0, 256, (GTA_BATCH,) + GTA_HW
+                                                 + (3,)) - mean) / std)
+                              .astype(np.float32)).permute(0, 3, 1, 2)
+             .cuda() for _ in range(2)]
+    t0 = time.perf_counter()
+    ckpts = {"ensemble": []}
+    for m in range(GTA_MEMBERS):
+        model = calibrated_hrnet(hp["softmax"], SEED + m, calib)
+        ckpts["ensemble"].append(write_hrnet_checkpoint(
+            os.path.join(root, f"softmax_{m}.ckpt"), model, hp["softmax"]))
+        if m == 0:
+            softmax_model = model
+    ckpts["softmax"] = ckpts["ensemble"][:1]
+    dropout_model = calibrated_hrnet(hp["dropout"], SEED + 10, calib)
+    ckpts["dropout"] = [write_hrnet_checkpoint(
+        os.path.join(root, "dropout.ckpt"), dropout_model, hp["dropout"])]
+    ssn_model = calibrated_hrnet(hp["ssn"], SEED + 20, calib)
+    ckpts["ssn"] = [write_hrnet_checkpoint(os.path.join(root, "ssn.ckpt"),
+                                           ssn_model, hp["ssn"])]
+    params = sum(p.numel() for p in softmax_model.parameters())
+    log(f"2D: HRNet-W48 ({params / 1e6:.2f} M parameters, "
+        f"{GTA_CLASSES} classes), {GTA_MEMBERS + 2} checkpoints written in "
+        f"{time.perf_counter() - t0:.1f} s; trees of {GTA_IMAGES} + "
+        f"{GTA_IMAGES} images at {GTA_HW[0]}x{GTA_HW[1]} and "
+        f"{GTA_FULL_IMAGES} at {GTA_FULL_HW[0]}x{GTA_FULL_HW[1]}; card "
+        f"{card}")
+
+    runs = {}
+    for family, dtype, split in GTA_RUNS:
+        names = {"tta": "softmax", "sliding": "softmax"}.get(family, family)
+        argv = (["--checkpoint_paths"] + ckpts[names]
+                + ["--test_split", split, "--dtype", dtype,
+                   "--test_batch_size", str(GTA_BATCH), "--save_dir",
+                   os.path.join(root, "results", f"{family}_{dtype}")])
+        if family in ("dropout", "ssn"):
+            argv += ["--n_pred", str(GTA_N_PRED)]
+        if family == "tta":
+            argv += ["-tta"]
+        if family == "sliding":
+            argv += ["--sliding_window", str(GTA_HW[0]), str(GTA_HW[1]),
+                     "-i", full]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tf32(True):  # PyTorch's default, which main() turned off
+            tester = test_2d.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        ids = [k for k in tester.results_dict if k != "mean"]
+        hw = GTA_FULL_HW if family == "sliding" else GTA_HW
+        check_2d_tree(tester.save_dir, family, ids, hw)
+        runs[f"{family} {dtype} {split}"] = {
+            "seconds": seconds, "write_s": tester.write_seconds,
+            "images": len(ids), "samples": GTA_SAMPLES[family],
+            "dice": tester.results_dict["mean"]["metrics"]["dice"]}
+        log(f"test_2d {family} {dtype} over {split}: {len(ids)} images, S = "
+            f"{GTA_SAMPLES[family]}, {seconds:.2f} s ({seconds / len(ids):.3f}"
+            f" s an image), PNG/TIF writes {tester.write_seconds:.2f} s "
+            f"({tester.write_seconds / seconds:.1%}); mean Dice "
+            f"{runs[f'{family} {dtype} {split}']['dice']:.4f}; tree checked;"
+            f" card {card}")
+        del tester
+
+    # one batch of the id split, as the tester feeds it
+    loader_args = test_2d.test_cli(["--checkpoint_paths"] + ckpts["softmax"]
+                                   + ["--test_batch_size", str(GTA_BATCH),
+                                      "--save_dir", os.path.join(root, "x")])
+    tester = test_2d.Tester2D(loader_args)
+    model = tester.models[0]
+    x = tester._to_device(next(iter(tester.test_dataloader))["data"])
+    checks = twod_checks(model, ssn_model.to(
+        memory_format=torch.channels_last), x, card)
+
+    # the sliding window on the card against a plain loop (TF32 off)
+    image = torch.from_numpy(np.load(os.path.join(
+        full, "OriginalData", "preprocessed", "images", "00000.npy"))
+        .astype(np.float32)).permute(2, 0, 1).cuda()
+    image = (image - torch.from_numpy(mean).to(image.device)[:, None, None]
+             ) / torch.from_numpy(std).to(image.device)[:, None, None]
+    sp = SlidingPredictor2D(model, GTA_HW, GTA_CLASSES)
+    with torch.no_grad(), tf32(False):
+        stitched = sp(image)
+        one_by_one = SlidingPredictor2D(model, GTA_HW, GTA_CLASSES,
+                                        window_batch=1)(image)
+        plain = plain_sliding_map(model, image, GTA_HW, 0.5)
+    n_windows = len(sp.grid(*image.shape[1:])[3])
+    sliding_err = float((stitched - plain).abs().max())
+    stitch_err = float((one_by_one - plain).abs().max())
+    with torch.no_grad(), tf32(True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp(image)
+        torch.cuda.synchronize()
+        sliding_s = time.perf_counter() - t0
+    # the predictor one window at a time runs the plain loop's forwards,
+    # so its grid, pad and stitch are held to 1e-6; batches of 8 windows
+    # change cuDNN's sums, so that map is held to the float32 outputs'
+    # bound (1e-4)
+    log(f"sliding window at {GTA_FULL_HW[0]}x{GTA_FULL_HW[1]} ({n_windows}"
+        f" windows of {GTA_HW[0]}x{GTA_HW[1]}, f32, TF32 off): the predictor"
+        f" one window at a time against a plain loop (numpy's pad, one "
+        f"window at a time, summed by slicing) {stitch_err:.2e} (bound "
+        f"1e-6); the predictor (forwards of 8 windows) against the plain "
+        f"loop {sliding_err:.2e} (bound 1e-4); {sliding_s:.3f} s an image"
+        f" (TF32 default); card {card}")
+    if stitch_err > 1e-6 or sliding_err > 1e-4:
+        checks["misses"].append("sliding window")
+
+    # the forward's numbers and one profiled batch per type
+    flops = conv_flops(model, x)
+    forward = {"f32 (TF32 default)": forward_numbers(model, x, "float32",
+                                                     True, flops, card),
+               "f32 (TF32 off)": forward_numbers(model, x, "float32", False,
+                                                 flops, card)}
+    profiles = {"f32": profile_2d_batch(tester, model, x, "f32", card)}
+    tester.models = [model.to(torch.bfloat16)]
+    tester.dtype = torch.bfloat16
+    x16 = x.to(torch.bfloat16)
+    forward["bf16"] = forward_numbers(tester.models[0], x16, "bfloat16", True,
+                                      flops, card)
+    profiles["bf16"] = profile_2d_batch(tester, tester.models[0], x16,
+                                        "bf16", card)
+    launches = read_launches()
+    if any(launches.values()):
+        checks["misses"].append(f"kernel launches {launches}")
+    shutil.rmtree(root)
+    seconds = time.perf_counter() - t_phase
+    log(f"2D phase: {seconds:.1f} s; K1-K3 launches {json.dumps(launches)} "
+        f"(none expected); card {card}")
+    if checks["misses"]:
+        raise AssertionError(f"the 2D phase missed: {checks['misses']}")
+    return {"runs": runs, "checks": checks, "forward": forward,
+            "profiles": profiles, "sliding_err": sliding_err,
+            "sliding_s": sliding_s, "flops": flops, "seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4227,10 +4882,6 @@ def main() -> int:
     from values_tpu_torch.inference.scoring import (make_aleatoric_scorer,
                                                     make_scorer)
     from values_tpu_torch.ops.kernels import conv3d, entropy, sampling
-
-    # float32 references run in full float32, not TF32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -4241,7 +4892,12 @@ def main() -> int:
         f"{torch.version.cuda}; cards visible {torch.cuda.device_count()}, "
         "this run uses 1")
     log(smi)
-
+    log(f"PyTorch's defaults here: cudnn.allow_tf32 "
+        f"{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    # float32 references run in full float32, not TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     with phase("build", smi):
         # one nvcc per library, both started together
         from concurrent.futures import ThreadPoolExecutor
@@ -4420,6 +5076,8 @@ def main() -> int:
             if launches["conv3d_fused_train"]:
                 kernels[1]["path_launches"][run] = launches[
                     "conv3d_fused_train"]
+    with phase("2D path", smi):
+        twod = twod_path(smi)
     log(f"headline: {vps:.2f} volumes/s deterministic, {a_vps:.2f} "
         f"volumes/s aleatoric ({N_ALEATORIC} samples) (ensemble-{N_MEMBERS},"
         f" {PATCH}^3, bf16, batch {BATCH}); training "
@@ -4458,6 +5116,18 @@ def main() -> int:
         + f"; second cycle {al['second_volumes_per_s']:.2f} volumes "
         f"trained/s, step median {statistics.median(al['steps']['second']):.2f}"
         f" ms; card {smi}")
+    log(f"headline, the 2D path (HRNet-W48, {GTA_CLASSES} classes, batch "
+        f"{GTA_BATCH} x {GTA_HW[0]}x{GTA_HW[1]}; median of {TIMED_FORWARDS} "
+        "forwards, min-max): " + "; ".join(
+            f"{n} {r['images_per_s']:.2f} ({r['min']:.2f}-{r['max']:.2f}) "
+            f"images/s, {r['tflops']:.1f} TFLOP/s, peak {r['peak_gb']:.2f} GB"
+            for n, r in twod["forward"].items())
+        + "; test_2d seconds " + ", ".join(
+            f"{n} {r['seconds']:.2f} (writes {r['write_s'] / r['seconds']:.0%})"
+            for n, r in twod["runs"].items())
+        + f"; sliding window {twod['sliding_s']:.3f} s per "
+        f"{GTA_FULL_HW[0]}x{GTA_FULL_HW[1]} image; the phase "
+        f"{twod['seconds']:.1f} s; card {smi}")
     log(f"the script: {time.perf_counter() - T_START:.1f} s from its "
         f"imports to its last phase's end; card {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)

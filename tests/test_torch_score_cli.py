@@ -166,12 +166,20 @@ def test_checkpoint_reading_matches_jax(toy, tmp_path, kind):
 
 
 def test_checkpoint_reading_refusals(toy, tmp_path):
+    """An HRNet checkpoint reads (the 2D path is ported), and the score
+    CLI, which builds UNet3D scorers only, refuses it with a ValueError
+    naming test_2d before any forward; orbax stays refused."""
     root, _, _, _ = toy
     hp = _hparams(root)
     hp["model"]["_target_"] = "values_tpu.models.hrnet.HRNet"
     _reference_ckpt(str(tmp_path / "hrnet.ckpt"), hp)
-    with pytest.raises(NotImplementedError, match="2D slice"):
-        load_any_checkpoint(str(tmp_path / "hrnet.ckpt"))
+    got_hp, _ = load_any_checkpoint(str(tmp_path / "hrnet.ckpt"))
+    assert got_hp == hp
+    args = score_cli(["--checkpoint_paths", str(tmp_path / "hrnet.ckpt"),
+                      "-i", str(root), "--out", str(tmp_path / "s.json"),
+                      "--device", "cpu"])
+    with pytest.raises(ValueError, match="test_2d"):
+        run_score(args)
     orbax = tmp_path / "orbax.ckpt"
     orbax.mkdir()
     (orbax / "values_tpu_meta.pkl").write_bytes(pickle.dumps({}))

@@ -366,10 +366,13 @@ def _assert_same_tree(got, want, atol):
 
 @pytest.mark.parametrize("extra", [["--sliding_window", "16", "16"]])
 def test_cli_refuses_what_is_not_ported(cli_runs, extra):
+    """--sliding_window is the 2D tester's (ported since): test_3d refuses
+    it with a ValueError that names values_tpu_torch.inference.test_2d."""
     root, common, _ = cli_runs
     args = test_3d.test_cli(common + ["--save_dir", str(root / "x"),
                                       "--device", "cpu"] + extra)
-    with pytest.raises(NotImplementedError, match="'2D'"):
+    with pytest.raises(ValueError,
+                       match="values_tpu_torch.inference.test_2d"):
         test_3d.run_test(args)
 
 

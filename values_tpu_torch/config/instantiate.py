@@ -8,9 +8,10 @@ JAX package: a ``values_tpu.*`` or reference target with no counterpart
 yet raises ``NotImplementedError`` naming the ROADMAP.md item that ports
 it. :data:`PREFIX_ALIASES` maps whole modules: every
 ``values_tpu.evaluation.*`` target, and the reference's evaluation
-targets, onto ``values_tpu_torch.evaluation.*``, but GTA's loaders
-("2D") and the visualization ("Evaluation, reporting"); a name that
-module does not hold raises ``NotImplementedError`` too.
+targets, onto ``values_tpu_torch.evaluation.*``, but GTA's evaluation
+loaders ("2D": 2D training and GTA evaluation) and the visualization
+("Evaluation, reporting"); a name that module does not hold raises
+``NotImplementedError`` too.
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ _LIDC = "values_tpu_torch.data.lidc_datamodule.LidcIdriDataModule3D"
 _LOGGING = "values_tpu_torch.training.tb_logging"
 _OPTIM = "values_tpu_torch.training.optim"
 _EVAL = "values_tpu_torch.evaluation"
+_HRNET = "values_tpu_torch.models.hrnet.get_seg_model"
+_BASE_DM = "values_tpu_torch.data.base_datamodule.BaseDataModule"
+_CITYSCAPES = "values_tpu_torch.data.cityscapes_dataset.CityscapesDataset"
 
 # reference or JAX-package import path -> values_tpu_torch import path
 TARGET_ALIASES: Dict[str, str] = {
@@ -39,6 +43,13 @@ TARGET_ALIASES: Dict[str, str] = {
     "uncertainty_modeling.lidc_idri_datamodule_3D.LidcIdriDataModule3D":
         _LIDC,
     "values_tpu.data.lidc_datamodule.LidcIdriDataModule3D": _LIDC,
+    "uncertainty_modeling.models.hrnet_module.get_seg_model": _HRNET,
+    "values_tpu.models.hrnet.get_seg_model": _HRNET,
+    "uncertainty_modeling.data.torch_dataloader.BaseDataModule": _BASE_DM,
+    "values_tpu.data.base_datamodule.BaseDataModule": _BASE_DM,
+    "uncertainty_modeling.data.cityscapes_dataset.CityscapesDataset":
+        _CITYSCAPES,
+    "values_tpu.data.cityscapes_dataset.CityscapesDataset": _CITYSCAPES,
     "pytorch_lightning.loggers.TensorBoardLogger":
         f"{_LOGGING}.TensorBoardLogger",
     "values_tpu.training.tb_logging.TensorBoardLogger":
@@ -65,13 +76,6 @@ PREFIX_ALIASES: Dict[str, str] = {
         f"{_EVAL}.split_file_generation.second_cycle_random.",
 }
 
-# targets whose counterpart is not ported yet -> the ROADMAP.md item
-NOT_PORTED: Dict[str, str] = {
-    "uncertainty_modeling.models.hrnet_module.get_seg_model": "2D",
-    "values_tpu.models.hrnet.get_seg_model": "2D",
-    "uncertainty_modeling.data.torch_dataloader.BaseDataModule": "2D",
-    "values_tpu.data.base_datamodule.BaseDataModule": "2D",
-}
 # module prefixes whose targets are not ported yet -> the ROADMAP.md item
 NOT_PORTED_PREFIXES: Dict[str, str] = {
     "values_tpu.evaluation.gta.": "2D",
@@ -109,9 +113,8 @@ def locate(path: str) -> Any:
     :data:`PREFIX_ALIASES`; raise ``NotImplementedError`` for a target the
     port has no counterpart of."""
     path = TARGET_ALIASES.get(path, path)
-    item = NOT_PORTED.get(path) or next(
-        (item for prefix, item in NOT_PORTED_PREFIXES.items()
-         if path.startswith(prefix)), None)
+    item = next((item for prefix, item in NOT_PORTED_PREFIXES.items()
+                 if path.startswith(prefix)), None)
     prefix = next((p for p in PREFIX_ALIASES if path.startswith(p)), None)
     if item is None and prefix is not None:
         obj = _import(PREFIX_ALIASES[prefix] + path[len(prefix):])

@@ -11,7 +11,7 @@ host in numpy:
 - ``predictive_uncertainty`` maps to the ``pred_entropy`` directory,
 - reference segs from ``gt_seg/``, or from a datamodule re-instantiated
   from a carried ``datamodule_config`` (the 2D GTA path, which the port
-  refuses through :func:`~values_tpu_torch.config.instantiate`),
+  refuses until GTA evaluation is ported: ROADMAP.md, Queue 1, "2D"),
 - GT uncertainty map = per-voxel variance across raters, or a configured
   loader,
 - mean pred seg = ``<id>_mean``, Softmax's ``<id>_01``.
@@ -128,6 +128,13 @@ class ExperimentDataloader:
         return out
 
     def setup_dataloader(self):
+        if "base_datamodule" in str(
+                self.exp_version.datamodule_config.get("_target_", "")):
+            # GTA's reference segs come through the 2D datamodule with
+            # evaluation/gta.py's loaders, which belong to 2D training
+            raise NotImplementedError(
+                "GTA evaluation (a datamodule_config of the 2D datamodule) "
+                "is not ported yet (ROADMAP.md, Queue 1: '2D')")
         dm = instantiate(make_config(dict(self.exp_version.datamodule_config,
                                           _recursive_=False)),
                          test_split=self.dataset_split)

@@ -19,7 +19,9 @@ it (:func:`build_scorer`): an SSN ensemble goes to ``make_ssn_scorer``,
 (K1 + K2). Each batch draws its sampling seed from one ``torch.Generator``
 seeded with the checkpoint's ``seed``, so the same command writes the
 same JSON. Single-window volumes only; multi-window volumes need the
-sliding-window path.
+sliding-window path. An HRNet checkpoint raises ValueError naming the
+2D tester, ``values_tpu_torch.inference.test_2d``: the JAX CLI builds
+UNet3D scorers only.
 
 Usage:
     python -m values_tpu_torch.inference.score \\
@@ -41,7 +43,7 @@ from ..core.seed import make_generator, set_seed
 from ..data.samples import get_val_test_data_samples
 from ..models.ensemble_unet3d import cast_weights
 from ..models.ssn_unet3d import SSN_HEADS, is_ssn_target
-from ..models.torch_import import group_member_state_dicts
+from ..models.torch_import import group_member_state_dicts, is_hrnet_target
 from ..training.checkpoint import load_any_checkpoint
 from . import scoring
 from .test_3d import (dir_and_subjects_from_train,
@@ -184,6 +186,11 @@ def run_score(args) -> Dict[str, Dict[str, float]]:
     device = resolve_device(args.device)
     loaded = [load_any_checkpoint(p) for p in args.checkpoint_paths]
     hparams = loaded[0][0]  # the first member pins the config
+    if any(is_hrnet_target(hp) for hp, _ in loaded):
+        # the JAX score CLI builds UNet3D scorers only (score.py:79-121)
+        raise ValueError("the score CLI takes 3D UNet3D checkpoints; an "
+                         "HRNet (2D) checkpoint goes through python -m "
+                         "values_tpu_torch.inference.test_2d")
     seed = hparams.get("seed", 123)
     set_seed(seed)
     score, rows = build_scorer(hparams, len(loaded), args, device)

@@ -19,10 +19,18 @@ card only ``--device cpu`` runs). ``--dtype float64`` is the CPU parity
 mode. The C1 mode follows the checkpoint and the flags
 (:func:`build_engine`): a single SSN checkpoint, ``-tta``, an aleatoric
 head, or the default ensemble (MC dropout with ``--n_pred > 1``).
-``--sliding_window`` belongs to the 2D tester and raises
-NotImplementedError.
+``--sliding_window`` belongs to the 2D tester,
+``values_tpu_torch.inference.test_2d``, and raises ValueError here, as
+does an HRNet checkpoint.
 ``--backend`` and ``--no-grouped-ensemble`` are accepted and choose
 nothing: the port has one lowering, the grouped forward on K1.
+
+Precision on the card: every 3x3x3 conv is K1, which runs float32 as
+3xTF32 (float32's accuracy); the k2s2 transposed convs and the head are
+matrix products, which PyTorch's default keeps float32
+(``torch.backends.cuda.matmul.allow_tf32`` off). No cuDNN convolution
+runs here, so cuDNN's TF32 default (``torch.backends.cudnn.allow_tf32``
+on), under which the 2D tester's convolutions run, does not apply.
 """
 from __future__ import annotations
 
@@ -38,18 +46,22 @@ from ..core.io import load_pickle
 from ..core.seed import set_seed
 from ..data.samples import get_val_test_data_samples
 from ..models.ssn_unet3d import SsnUNet3D
-from ..models.torch_import import unet3d_params_from_torch
+from ..models.torch_import import (is_hrnet_target,
+                                   unet3d_params_from_torch)
 from ..training.checkpoint import load_any_checkpoint
 from .carrier import VolumeCarrier
 from .engine import BACKENDS, SlidingWindowEngine
-from .predictors import not_ported
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float64": torch.float64}
 
 
-def test_cli(argv=None) -> argparse.Namespace:
-    parser = argparse.ArgumentParser(description=__doc__)
+def test_cli(argv=None, description: str = __doc__) -> argparse.Namespace:
+    """The arguments of both testers (the JAX package's ``test_2d`` reuses
+    its ``test_3d`` parser too); ``description`` heads ``--help``."""
+    parser = argparse.ArgumentParser(
+        description=description,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--checkpoint_paths", type=str, nargs="+",
                         required=True)
     parser.add_argument("-i", "--data_input_dir", type=str, default=None)
@@ -84,7 +96,8 @@ def test_cli(argv=None) -> argparse.Namespace:
                         help="accepted for the JAX CLI's sake; the port has "
                         "one lowering, K1")
     parser.add_argument("--sliding_window", type=int, nargs=2, default=None,
-                        metavar=("PH", "PW"), help="2D tester only")
+                        metavar=("PH", "PW"),
+                        help="2D tester only: full-resolution windows")
     parser.add_argument("--sliding_overlap", type=float, default=0.5,
                         help="2D tester only")
     parser.add_argument("--dtype", type=str, default="float32",
@@ -216,10 +229,14 @@ def save_results(carrier: VolumeCarrier, hparams: Dict, args) -> None:
 def run_test(args) -> VolumeCarrier:
     device = resolve_device(args.device)
     if args.sliding_window is not None:
-        raise not_ported("--sliding_window (the 2D tester's)", "2D")
+        raise ValueError("--sliding_window belongs to the 2D tester: run "
+                         "python -m values_tpu_torch.inference.test_2d")
     all_hparams, all_variables = [], []
     for path in args.checkpoint_paths:
         hparams, state_dict = load_any_checkpoint(path)
+        if is_hrnet_target(hparams):
+            raise ValueError(f"{path} holds an HRNet, a 2D model: run "
+                             "python -m values_tpu_torch.inference.test_2d")
         all_hparams.append(hparams)
         all_variables.append(unet3d_params_from_torch(state_dict))
     hparams = all_hparams[0]

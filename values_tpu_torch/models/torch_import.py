@@ -1,10 +1,13 @@
 """Weight bridge: flax UNet3D variables -> reference state_dicts -> the
-grouped ensemble weights of :mod:`values_tpu_torch.models.ensemble_unet3d`.
+grouped ensemble weights of :mod:`values_tpu_torch.models.ensemble_unet3d`;
+flax HRNet variables -> the state_dict of
+:class:`values_tpu_torch.models.hrnet.HighResolutionNet`.
 
 Counterpart of ``values_tpu/models/torch_import.py`` (``strip_model_prefix``
 :48, ``unet3d_params_to_torch`` :173-245, ``export_reference_checkpoint``
 :248, ``load_reference_checkpoint`` :258-274) and of
-``values_tpu/models/ensemble_unet3d.py::group_member_variables`` (:187-230).
+``values_tpu/models/ensemble_unet3d.py::group_member_variables`` (:187-230);
+:func:`hrnet_params_to_torch` inverts ``hrnet_params_from_torch`` (:105-147).
 The port keeps its own copies: it imports nothing of the JAX package.
 
 Layouts:
@@ -120,18 +123,68 @@ def unet3d_params_to_torch(variables: Mapping[str, Any]
     return state
 
 
-def require_unet3d(hparams: Any, path: str) -> None:
-    """Raise ``NotImplementedError`` for a checkpoint whose model target
-    is not of the UNet3D family (plain, aleatoric, dropout or SSN): the
-    port reads only those so far."""
+def is_hrnet_target(hparams: Any) -> bool:
+    """Whether a checkpoint's ``hyper_parameters`` name an HRNet model
+    (the reference's, the JAX package's or the port's target)."""
     try:
         target = str(hparams["model"].get("_target_", ""))
     except (KeyError, AttributeError, TypeError):
         target = ""
-    if "hrnet" in target.lower():
-        raise NotImplementedError(
-            f"{path}: HRNet checkpoints belong to the 2D slice of the port "
-            "(ROADMAP.md, Queue 1: \"2D\"), which is not ported yet")
+    return "hrnet" in target.lower()
+
+
+def hrnet_params_to_torch(variables: Mapping[str, Any],
+                          cfg: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax HRNet variables (``params`` and ``batch_stats`` of numpy
+    arrays, the JAX package's tree) -> the port's HRNet state_dict, with
+    ``model.``-prefixed keys, for the HRNet of config ``cfg``:
+
+    - conv kernel (kh, kw, I, O) -> weight (O, I, kh, kw), bias as is;
+    - BN ``scale``/``bias`` -> ``weight``/``bias``, ``mean``/``var`` ->
+      ``running_mean``/``running_var``, ``num_batches_tracked`` 0.
+
+    The flax module names are the torch prefixes with '.' -> '_'; the map
+    is built from the port model's own keys (``fuse_layers``,
+    ``last_layer`` and ``cov_factor_conv`` hold underscores of their own,
+    so the reverse rewrite is not mechanical). Raises KeyError for a
+    missing or an unused leaf."""
+    from .hrnet import HighResolutionNet
+    with torch.device("meta"):
+        keys = list(HighResolutionNet(cfg).state_dict())
+    params = variables["params"] if "params" in variables else variables
+    stats = variables.get("batch_stats", {})
+    bn_prefixes = {k[:-len(".running_mean")] for k in keys
+                   if k.endswith(".running_mean")}
+    used = set()
+    state: Dict[str, torch.Tensor] = {}
+    for key in keys:
+        prefix, leaf = key.rsplit(".", 1)
+        name = prefix.replace(".", "_")
+        if leaf == "num_batches_tracked":
+            state[f"model.{key}"] = torch.tensor(0)
+            continue
+        if leaf in ("running_mean", "running_var"):
+            tree, flax_leaf = stats, leaf[len("running_"):]
+        elif prefix in bn_prefixes:
+            tree, flax_leaf = params, {"weight": "scale"}.get(leaf, leaf)
+        else:
+            tree, flax_leaf = params, {"weight": "kernel"}.get(leaf, leaf)
+        try:
+            arr = np.asarray(tree[name][flax_leaf])
+        except KeyError:
+            raise KeyError(f"HRNet variables lack {name}/{flax_leaf} "
+                           f"(for {key})") from None
+        used.add((id(tree), name, flax_leaf))
+        if flax_leaf == "kernel":
+            arr = np.transpose(arr, (3, 2, 0, 1))
+        state[f"model.{key}"] = torch.from_numpy(np.array(arr, order="C"))
+    unused = [f"{n}/{leaf}" for tree in (params, stats)
+              for n, leaves in tree.items() for leaf in leaves
+              if (id(tree), n, leaf) not in used]
+    if unused:
+        raise KeyError(f"HRNet variables hold leaves the model lacks: "
+                       f"{unused[:5]}")
+    return state
 
 
 def export_reference_checkpoint(path: str, variables: Mapping[str, Any],
@@ -146,14 +199,13 @@ def export_reference_checkpoint(path: str, variables: Mapping[str, Any],
 def load_reference_checkpoint(path: str
                               ) -> Tuple[Dict[str, Any],
                                          Dict[str, torch.Tensor]]:
-    """Read a reference Lightning ``.ckpt`` (zip or legacy pickle);
-    returns ``(hyper_parameters, state_dict)`` with ``model.``-prefixed
-    keys. UNet3D family only."""
+    """Read a reference Lightning ``.ckpt`` (zip or legacy pickle), of
+    the UNet3D family or HRNet; returns ``(hyper_parameters,
+    state_dict)`` with ``model.``-prefixed keys."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     hparams = ckpt["hyper_parameters"]
     if hasattr(hparams, "items"):
         hparams = {k: v for k, v in hparams.items()}
-    require_unet3d(hparams, path)
     state = {(k if k.startswith("model.") else "model." + k):
              torch.as_tensor(v) for k, v in ckpt["state_dict"].items()}
     return hparams, state

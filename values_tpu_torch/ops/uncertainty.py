@@ -7,7 +7,9 @@ test_3D.py:486-534):
 - EE = mean_s [-sum_c guard(p_sc log p_sc)];
 - MI = PE - EE;
 - guard: where ``p log p`` is NaN (p == 0: 0 * -inf) the term is 0;
-- non-SSN models report aleatoric = EE, epistemic = MI; SSN swaps them.
+- non-SSN models report aleatoric = EE, epistemic = MI; SSN swaps them;
+- one prediction: 1 - max softmax, stored as ``pred_entropy``
+  (:func:`one_minus_msr`, :69-72; test_3D.py:521-525).
 
 The one-pass kernel form of :func:`fused_sample_statistics` is
 :func:`values_tpu_torch.ops.kernels.entropy.fused_entropy`.
@@ -51,6 +53,12 @@ def uncertainty_measures(softmax_preds: torch.Tensor,
     return {"pred_entropy": stats["pred_entropy"],
             "aleatoric_uncertainty": mi if ssn else ee,
             "epistemic_uncertainty": ee if ssn else mi}
+
+
+def one_minus_msr(softmax_pred: torch.Tensor,
+                  class_axis: int = 0) -> Dict[str, torch.Tensor]:
+    """1 - maximum softmax response of a single prediction."""
+    return {"pred_entropy": 1.0 - torch.amax(softmax_pred, dim=class_axis)}
 
 
 def aleatoric_softmax_samples(mu: torch.Tensor, s: torch.Tensor,

@@ -11,7 +11,8 @@ prefixed keys), whichever of these formats holds it:
 
 - the JAX package's native pickle (a dict tagged ``FORMAT_KEY`` holding
   numpy flax trees), converted with
-  :func:`values_tpu_torch.models.torch_import.unet3d_params_to_torch`;
+  :func:`values_tpu_torch.models.torch_import.unet3d_params_to_torch`, or
+  for an HRNet (the 2D path) with ``hrnet_params_to_torch``;
 - a reference Lightning ``.ckpt`` (zip), or a legacy (non-zip) torch
   pickle.
 
@@ -33,8 +34,9 @@ import numpy as np
 import torch
 
 from ..core.io import save_pickle
-from ..models.torch_import import (load_reference_checkpoint,
-                                   require_unet3d, unet3d_params_to_torch)
+from ..models.torch_import import (hrnet_params_to_torch, is_hrnet_target,
+                                   load_reference_checkpoint,
+                                   unet3d_params_to_torch)
 
 FORMAT_KEY = "values_tpu_checkpoint"
 TORCH_OPTIMIZER_KEY = "torch_optimizer_state"
@@ -115,7 +117,9 @@ def load_any_checkpoint(path: str
         # legacy torch pickle (non-zip) checkpoints
         return load_reference_checkpoint(path)
     hparams = payload["hyper_parameters"]
-    require_unet3d(hparams, path)
+    if is_hrnet_target(hparams):
+        return hparams, hrnet_params_to_torch(payload["state_dict"],
+                                              hparams["model"]["cfg"])
     return hparams, unet3d_params_to_torch(payload["state_dict"])
 
 

@@ -46,6 +46,7 @@ from ..core.device import resolve_device
 from ..models.ensemble_unet3d import (PATCH_MULTIPLE, draw_keep_masks,
                                       eval_forward, single_member_tree,
                                       ssn_train_forward, train_forward)
+from ..models.hrnet import HighResolutionNet
 from ..models.ssn_unet3d import SsnUNet3D
 from ..models.torch_import import unet3d_params_from_torch
 from ..ops import losses as L
@@ -104,12 +105,15 @@ class Experiment:
         model_kwargs = {}
         if cfg.get("aleatoric_loss") is not None:
             model_kwargs["aleatoric_loss"] = cfg.get("aleatoric_loss")
-        # the model is built (and its config checked: 2D targets raise)
+        # the model is built (and its config checked: 2D models raise)
         # under a forked RNG here, and seeded in init_state
         self._build_model = functools.partial(instantiate, cfg.model,
                                               **model_kwargs)
         with torch.random.fork_rng(devices=[]):
             model = self._build_model()
+        if isinstance(model, HighResolutionNet):
+            raise NotImplementedError("2D training is not ported yet "
+                                      "(ROADMAP.md, Queue 1: '2D')")
         self.is_ssn = isinstance(model, SsnUNet3D)
         self.has_dropout = bool(model.do_dropout)
         self.num_classes = int(model.num_classes)

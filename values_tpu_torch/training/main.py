@@ -10,6 +10,16 @@ uncertainty_modeling/main.py:33-88), with the same arguments and
 Environment overrides as in the reference: DATASET_LOCATION,
 EXPERIMENT_LOCATION, LSB_JOBID -> version. Without ``--device cpu`` it
 needs a CUDA card.
+
+Precision on the card: K1 and K1b's dx (the hand-written kernels) run
+float32 as 3xTF32, float32's accuracy. The float32 convolution outside
+them, cuDNN's weight gradient of every 3x3x3 conv, runs under cuDNN's
+TF32, PyTorch's default (``torch.backends.cudnn.allow_tf32``), as the
+reference's PyTorch code did; matrix products (the k2s2 transposed convs,
+the 1x1x1 head) stay float32 (``torch.backends.cuda.matmul.allow_tf32``
+defaults off). ``torch.backends.cudnn.allow_tf32 = False`` gives full
+float32, where cuDNN's weight gradient becomes most of the step's time
+(PERF.md, section 5).
 """
 from __future__ import annotations
 
@@ -23,7 +33,9 @@ DEFAULT_CONFIG_DIR = str(Path(__file__).resolve().parents[2] / "configs")
 
 
 def main(argv=None) -> str:
-    parser = argparse.ArgumentParser(description=__doc__)
+    parser = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--config-name", "-cn", default="softmax_config")
     parser.add_argument("--config-dir", "-cd", default=DEFAULT_CONFIG_DIR)
     parser.add_argument("--device", default="cuda",
