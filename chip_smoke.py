@@ -16,7 +16,9 @@ Phases, each of which raises on failure:
 3. hold K1 against its plain PyTorch version on the card, in float32
    and bfloat16, over every fusion the main path uses and every regime
    of ``conv3d.plan`` (each case checks that its regime launched), and
-   over all 18 convs of the AL loop's test_3d (B = 1, G = 2 and 1);
+   over all 18 convs of the AL loop's test_3d (B = 1, G = 2 and 1), and
+   over bfloat16 channel counts it runs zero-padded (Cin 4, 12, 6+6, 1,
+   96+96; Cout 6, 12, 96);
 4. hold K2 against its plain version: the probability form on a stack
    with exact zeros (contiguous and channels-last), the logits form in
    float32 and bfloat16;
@@ -26,7 +28,10 @@ Phases, each of which raises on failure:
 5b. hold K1b (K1's autograd Function, its dx one launch of the dx
    entry) against autograd through K1's plain version: dx, dW and db,
    f32 and bf16, with statistics and with the leaky and ReLU epilogues,
-   at G = 1, 2 and 5 (the joint ensemble step's groups);
+   at G = 1, 2 and 5 (the joint ensemble step's groups), and at bf16
+   shapes it runs zero-padded (forward Cin 4, 6, 12; Cout 6, 12); then
+   one bf16 ``softmax_config`` training step at ``initial_filter_size``
+   12 (every conv padded) against the f32 step;
 6. run the deterministic path at full width -- the 5-member UNet3D
    ensemble (2 classes, initial filter size 8) scoring batches of 32
    64^3 volumes through ``make_scorer`` -- count each kernel's launches
@@ -111,8 +116,21 @@ Phases, each of which raises on failure:
    second cycle (``al_driver``'s dry run, then the 5 runs that
    al_improvement reads through ``al_driver``, each with its test_3d over
    ood moved into al_improvement's layout) and al_improvement; every
-   run's launches counted, the steps timed. It runs last; its launches
-   join the kernels line;
+   run's launches counted, the steps timed; its launches join the
+   kernels line;
+8m. then the 2D path (HRNet-W48 through ``test_2d``) and, last,
+   GTA's training half (``gta_training_path``): raw GTA5 (1914x1052)
+   and Cityscapes (2048x1024) PNGs written by the script with every PNG
+   filter and one palette file, preprocessed and split through the
+   port's CLI and held against the script's own crop and resize; the
+   training CLI on ``gta_softmax_config`` (2 epochs, 2 seeds),
+   ``gta_ssn_config`` (the first epoch mean-only), DROPOUT_FINAL and
+   bf16 at HRNet-W48's published widths; training steps timed and
+   profiled (f32 under the default and with TF32 off, bf16); the first
+   step on the card against the CPU's in float64 and float32, and TF32
+   against off; ``test_2d`` on the trained checkpoints (5 families, 4
+   splits) and ``eval_config_gta``'s six tasks, each timed; no launch
+   of K1-K3;
 9. time each kernel at its path's shape beside its bound, its plain
    version and a library yardstick (K3: the stock-torch sampling loop,
    and its SFU floor, computed at the card's maximum SM clock; K2: both
@@ -405,6 +423,24 @@ UNET3D_F8_CONVS = [
     (64, 8, 8, 8, True, "leaky", False, "shallow"),
     (64, 8, 0, 8, False, "leaky", False, "shallow"),
 ]
+# F2: bfloat16 shapes no regime takes as they are, run zero-padded
+# (conv3d.py::padded_channels); the regime is plan's for the padded
+# shape, None here
+K1_CASES += [
+    ("F2 pad Cin 4 -> Cout 6", 2, 16, 16, 16, 2, 4, 0, 6, True, "leaky",
+     False, None),
+    ("F2 pad Cin 12 -> Cout 12, stats", 2, 16, 16, 16, 2, 12, 0, 12, True,
+     "none", True, None),
+    ("F2 pad Cin 6+6 -> Cout 12", 2, 16, 16, 16, 2, 6, 6, 12, True, "leaky",
+     False, None),
+    ("F2 pad Cin 1 -> Cout 12, stats", 2, 16, 16, 16, 1, 1, 0, 12, False,
+     "none", True, None),
+    ("F2 pad 8^3 Cin 12 -> Cout 6", 2, 8, 8, 8, 5, 12, 0, 6, True, "relu",
+     False, None),
+    # UNet3D f 12's expand_4_1: 128 + 128 after padding, whose 4x8x8 tile
+    # does not fit shared memory: plan takes 4x4x4
+    ("F2 pad 8^3 Cin 96+96 -> Cout 96", 8, 8, 8, 8, 1, 96, 96, 96, True,
+     "leaky", False, "tile4")]
 # every conv of the AL loop's test_3d: one 64^3 window a chunk (B = 1), the
 # Ensemble of two members (G = 2) and Softmax (G = 1)
 K1_CASES += [
@@ -429,12 +465,15 @@ K1_CASES += [
 K1_TOL = {"float32": (0.0, 1e-4, 1e-5), "bfloat16": (2 ** -7, 2e-3, 1e-3)}
 
 
-def check_k1():
+def check_k1() -> dict:
+    """Every K1 case against the plain version; returns the F2 cases'
+    (bfloat16, zero-padded) max_abs_err and regime, by name."""
     import torch
     from values_tpu_torch.ops.kernels.conv3d import (conv3d_fused,
                                                      conv3d_fused_reference,
-                                                     plan)
+                                                     padded_channels, plan)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    padded = {}
     for dtype in (torch.float32, torch.bfloat16):
         rtol, atol_rel, stats_rtol = K1_TOL[str(dtype).split(".")[1]]
         for (name, b, d, h, w, g, cin1, cin2, cout, pro, act, stats,
@@ -443,8 +482,9 @@ def check_k1():
                 gen, dtype, b, d, h, w, g, cin1, cin2, cout, pro)
             kw = dict(x2=x2, prologue=maps, activation=act,
                       emit_stats=stats)
-            if dtype == torch.float32:
-                regime = plan(dtype, d, h, w, g, cin1, cin2, cout).regime
+            if dtype == torch.float32 or regime is None:
+                regime = plan(dtype, d, h, w, g, *padded_channels(
+                    dtype, cin1, cin2, cout)).regime
             before = dict(conv3d_fused.regime_launches)
             got = conv3d_fused(x, weight, bias, g, **kw)
             ran = regimes_since(before)
@@ -475,6 +515,10 @@ def check_k1():
             if bad:
                 raise AssertionError(f"K1 {dtype} case {name!r}: {bad} "
                                      "values outside tolerance")
+            if name.startswith("F2") and dtype == torch.bfloat16:
+                padded[name] = {"regime": regime,
+                                "max_abs_err": float(err.max())}
+    return padded
 
 
 # -- K1's build: spills and tensor-core instructions --------------------------
@@ -769,6 +813,11 @@ K1B_CASES += [
      TRAIN_BATCH, d, g, c1 + c2, co, K1B_FOLDS if i == 16 else K1B_FOLDS[:2])
     for dt in ("float32", "bfloat16") for g in (1, N_MEMBERS)
     for i, (d, c1, c2, co, *_) in enumerate(UNET3D_F8_CONVS[1:], 1)]
+# F2: bfloat16 forward and dx shapes run zero-padded (forward Cin 4 and
+# 12, Cout 6 and 12)
+K1B_CASES += [
+    (f"F2 pad B 2, 16^3, G 2, {ci} -> {co}", "bfloat16", 2, 16, 2, ci, co,
+     K1B_FOLDS) for ci, co in ((4, 6), (12, 12), (12, 6), (6, 12))]
 # Tolerances: float32 atol 1e-4 max|g| -- dx, dW and db each add up to
 # 27 Cout (dx; 3xTF32 products, float32's accuracy) or B D H W (dW, db)
 # terms in another order than cuDNN does on the plain side (TF32 off),
@@ -788,9 +837,11 @@ def check_k1b():
     import torch
     from values_tpu_torch.ops.kernels.conv3d import (conv3d_fused,
                                                      conv3d_fused_train,
-                                                     plan, plan_dx)
+                                                     dx_padded_channels,
+                                                     padded_channels, plan,
+                                                     plan_dx)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    worst = 0.0
+    worst, padded = 0.0, {}
     for name, dt, b, p, g, cin, cout, folds in K1B_CASES:
         dtype = getattr(torch, dt)
         rtol, atol_rel = K1B_TOL[dt]
@@ -808,9 +859,11 @@ def check_k1b():
         # (fault R5: a shift below half an ulp of dy is rounded away)
         g1, g2 = torch.randn((2, b, g * cout), generator=gen,
                              device="cuda") * 0.1
-        dx_regime = plan_dx(dtype, p, p, p, g, cout, cin).regime
+        dx_regime = plan_dx(dtype, p, p, p, g, *dx_padded_channels(
+            dtype, cout, cin)).regime
         expected = dict(collections.Counter(
-            [plan(dtype, p, p, p, g, cin, 0, cout).regime, dx_regime]))
+            [plan(dtype, p, p, p, g, *padded_channels(dtype, cin, 0, cout)
+                  ).regime, dx_regime]))
         for case in folds:
             reset_launches()
             regimes = dict(conv3d_fused.regime_launches)
@@ -841,11 +894,14 @@ def check_k1b():
                         f"K1b {dt} {name} {case} {what}: max_abs_err "
                         f"{float(err.max()):.3e} (max|g| {scale:.3e})")
             worst = max(worst, *errs)
+            if name.startswith("F2"):
+                padded[f"{name} {case}"] = {"dx_regime": dx_regime,
+                                            "max_err_over_max_g": max(errs)}
             log(f"K1b {dt:8s} {name:36s} {case:5s}: max_abs_err / max|g| "
                 f"dx {errs[0]:.2e} dW {errs[1]:.2e} db {errs[2]:.2e}; "
                 f"dx entry launched once ({dx_regime})")
             del got, want
-    return worst
+    return worst, padded
 
 
 # -- the main path ------------------------------------------------------------
@@ -4400,13 +4456,6 @@ def write_hrnet_checkpoint(path: str, model, hparams: dict) -> str:
     return path
 
 
-def read_tiff_float32(path: str, h: int, w: int) -> np.ndarray:
-    """The map of a TIFF written by ``core.image_io.write_tiff_float32``
-    (one strip at offset 8)."""
-    return np.fromfile(path, dtype="<f4", count=h * w, offset=8).reshape(h,
-                                                                         w)
-
-
 def check_2d_tree(base: str, family: str, split_ids, hw) -> None:
     """Every image's PNGs (the mean and each of S predictions, or the one),
     TIFs (PE, aleatoric, epistemic; 1 - MSR alone for S = 1) and
@@ -4414,6 +4463,8 @@ def check_2d_tree(base: str, family: str, split_ids, hw) -> None:
     Dice in [0, 1]."""
     import math
     import struct
+    from values_tpu_torch.evaluation.experiment_dataloader import (
+        read_tiff_float32)
     s = GTA_SAMPLES[family]
     metrics = json.load(open(os.path.join(base, "metrics.json")))
     if sorted(metrics) != sorted(list(split_ids) + ["mean"]):
@@ -4440,7 +4491,10 @@ def check_2d_tree(base: str, family: str, split_ids, hw) -> None:
                 raise AssertionError(f"{path}: not a {w}x{h} PNG")
         for name in maps:
             arr = read_tiff_float32(os.path.join(base, name,
-                                                 f"{image_id}.tif"), h, w)
+                                                 f"{image_id}.tif"))
+            if arr.shape != (h, w):
+                raise AssertionError(f"{base}/{name}/{image_id}: "
+                                     f"{arr.shape}")
             if not np.isfinite(arr).all():
                 raise AssertionError(f"{base}/{name}/{image_id}: not finite")
             if name == "pred_entropy" and s > 1 and not (
@@ -4874,6 +4928,681 @@ def twod_path(card: str) -> dict:
             "sliding_s": sliding_s, "flops": flops, "seconds": seconds}
 
 
+# -- the GTA pipeline's training half -----------------------------------------
+
+GTA_RAW_IMAGES, CS_RAW_IMAGES = 24, 8       # raw PNG pairs written
+GTA_RAW_HW, CS_RAW_HW = (1052, 1914), (1024, 2048)   # published raw sizes
+CS_CITIES = {"train": ("aachen", "bochum"), "val": ("lindau", "munster")}
+GTA_TRAIN_SEEDS = (123, 124)
+# gta_ssn_config's RMSprop at its learning rate 0.01 moves every weight by
+# about 10 lr on its first step; from random weights the SSN's cov_diag =
+# exp(logits) then overflows float32 and the training loss is NaN within
+# the first epoch (read on an NVIDIA H100 80GB HBM3), so the SSN run takes
+# 1e-4
+GTA_SSN_LR = 1e-4
+GTA_TRAIN_EPOCHS = 2
+GTA_TIMED_STEPS = 10
+GTA_CPU_BATCH = 2        # images of the CPU-held first step
+GTA_EVAL_MODELS = ("Softmax", "Ensemble", "Dropout-Final", "TTA", "SSN")
+GTA_EVAL_SPLITS = ("val", "id", "ood", "unlabeled")
+GTA_EVAL_TASKS = ("threshold", "aggregation", "ood_detection",
+                  "failure_detection", "calibration", "ambiguity_modeling")
+# The first training step from the same weights and batch, read on an
+# NVIDIA H100 80GB HBM3 (700 W) on two batches. float64 on the card and
+# the CPU is the same function: 5.2e-13 and 1.8e-12 of the gradient norm
+# apart, so 1e-10. float32 (TF32 off): the loss 1e-5 of the CPU's (7.9e-8
+# and 7.4e-8 read); the gradient and the BN statistics no further from
+# float64 than 3x the CPU's float32 (read: gradient 1.86e-2 and 1.54e-2
+# of the norm against the CPU's 1.50e-2 and 1.33e-2, statistics 6.3e-6
+# and 5.5e-6 against 3.7e-6 and 3.3e-6): this random HRNet-W48's
+# BatchNorms amplify float32's rounding ~10^5-fold, so a bound of 1e-4 on
+# the card's gradient norm against the CPU's (read: 7.7e-5 and 3.2e-4)
+# sits below float32's own error. TF32 against off: the gradient's
+# direction moved 51-53% (P2's 3D bounds, 1e-3 and 1e-2, do not
+# transfer: every conv of this forward runs TF32), its norm 1.9e-3 and
+# 4.8e-3, the loss 2.2e-5 and 3.8e-5, the statistics 5.8e-3 and 5.9e-3;
+# bounded at about five times the larger readings.
+GTA_F64_BOUND = 1e-10
+GTA_CPU_LOSS_BOUND = 1e-5
+GTA_F32_FACTOR = 3.0
+GTA_TF32_BOUNDS = {"loss": 2e-4, "norm": 2.5e-2, "stats": 3e-2}
+
+
+def png_rows(pixels: np.ndarray, bpp: int, types) -> bytes:
+    """PNG's filtered scanlines (the specification, section 9) of (H,
+    stride) uint8 ``pixels``, row y filtered with ``types[y]``; the encoder
+    reads only unfiltered rows, so each row is a few numpy operations."""
+    raw = pixels.astype(np.int16)
+    h, n = raw.shape
+    out = np.empty((h, n + 1), np.uint8)
+    zeros = np.zeros(n, np.int16)
+    for y in range(h):
+        x, b = raw[y], raw[y - 1] if y else zeros
+        a = np.concatenate([zeros[:bpp], x[:-bpp]])
+        c = np.concatenate([zeros[:bpp], b[:-bpp]])
+        kind = types[y]
+        if kind == 0:
+            pred = 0
+        elif kind == 1:
+            pred = a
+        elif kind == 2:
+            pred = b
+        elif kind == 3:
+            pred = (a + b) >> 1
+        else:
+            p = a + b - c
+            pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+            pred = np.where((pa <= pb) & (pa <= pc), a,
+                            np.where(pb <= pc, b, c))
+        out[y, 0] = kind
+        out[y, 1:] = (x - pred) & 255
+    return out.tobytes()
+
+
+def write_test_png(path: str, pixels: np.ndarray, colour: int,
+                   palette=None) -> None:
+    """A test PNG (grey 0, RGB 2 or palette 3; 8 bits) whose rows cycle
+    through the five filters, as libpng's adaptive filtering mixes them."""
+    import struct
+    import zlib
+    h = pixels.shape[0]
+    rows = pixels.reshape(h, -1)
+    bpp = 3 if colour == 2 else 1
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    body = chunk(b"IHDR", struct.pack(">IIBBBBB", pixels.shape[1], h, 8,
+                                      colour, 0, 0, 0))
+    if palette is not None:
+        body += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    body += chunk(b"IDAT", zlib.compress(
+        png_rows(rows, bpp, [y % 5 for y in range(h)]), 1))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + body + chunk(b"IEND", b""))
+
+
+def raw_image(rs, hw) -> np.ndarray:
+    """A smooth-ish uint8 RGB image: 8x8 blocks of random colour with
+    noise on top (every filter then has work to do)."""
+    h, w = hw
+    blocks = rs.randint(0, 256, (-(-h // 8), -(-w // 8), 3))
+    img = np.repeat(np.repeat(blocks, 8, 0), 8, 1)[:h, :w]
+    return np.clip(img + rs.randint(-12, 13, img.shape), 0, 255).astype(
+        np.uint8)
+
+
+def write_raw_gta(root: str, seed: int) -> dict:
+    """The raw GTA5 and Cityscapes trees at the published sizes, as the
+    preprocessing reads them (under ``OriginalData`` and
+    ``CityScapesOriginalData``, the layout the splits read the cities
+    from): GTA ``images/`` and colour ``labels/`` (the
+    label table's colours in 16x16 blocks; one label PNG written as a
+    palette image), Cityscapes ``leftImg8bit`` and grey
+    ``gtFine_labelIds`` in two train and two val cities. Returns the
+    arrays written (RGB), by dataset and image id."""
+    from values_tpu_torch.data import cityscapes_labels as cs_labels
+    rs = np.random.RandomState(seed)
+    colours = np.array(sorted(cs_labels.color2trainId), np.uint8)
+    written = {"gta": {}, "cityscapes": {}}
+    gta = os.path.join(root, "OriginalData")
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(gta, sub), exist_ok=True)
+    h, w = GTA_RAW_HW
+    for i in range(GTA_RAW_IMAGES):
+        name = f"{i:05d}"
+        image = raw_image(rs, GTA_RAW_HW)
+        index = np.kron(rs.randint(0, len(colours), (-(-h // 16),
+                                                     -(-w // 16))),
+                        np.ones((16, 16), np.int64))[:h, :w]
+        write_test_png(os.path.join(gta, "images", f"{name}.png"), image, 2)
+        path = os.path.join(gta, "labels", f"{name}.png")
+        if i == 0:
+            write_test_png(path, index.astype(np.uint8), 3, colours)
+        else:
+            write_test_png(path, colours[index], 2)
+        written["gta"][name] = (image, colours[index])
+    cs = os.path.join(root, "CityScapesOriginalData")
+    for split, cities in CS_CITIES.items():
+        for city in cities:
+            img_dir = os.path.join(cs, "images", "leftImg8bit", split, city)
+            lbl_dir = os.path.join(cs, "labels", "gtFine", split, city)
+            os.makedirs(img_dir, exist_ok=True)
+            os.makedirs(lbl_dir, exist_ok=True)
+            for k in range(CS_RAW_IMAGES // 4):
+                name = f"{city}_{k:06d}_000019"
+                image = raw_image(rs, CS_RAW_HW)
+                ids = np.kron(rs.randint(0, 34, (CS_RAW_HW[0] // 16,
+                                                 CS_RAW_HW[1] // 16)),
+                              np.ones((16, 16), np.int64)).astype(np.uint8)
+                write_test_png(os.path.join(
+                    img_dir, f"{name}_leftImg8bit.png"), image, 2)
+                write_test_png(os.path.join(
+                    lbl_dir, f"{name}_gtFine_labelIds.png"), ids, 0)
+                written["cityscapes"][name] = (image, ids)
+    return written
+
+
+def expected_preprocessed(image: np.ndarray, label: np.ndarray, dataset):
+    """The script's own crop and 0.25x resizes of what it wrote: the
+    centre 1024x1912 crop, the rounded mean of each 4x4 block's central
+    2x2 (cv2's uint8 linear rule at 4x), each block's top-left label,
+    trainIds through the label table (GTA: by colour)."""
+    from values_tpu_torch.data import cityscapes_labels as cs_labels
+
+    def crop(a):
+        y = (a.shape[0] - 1024) // 2
+        x = (a.shape[1] - 1912) // 2
+        return a[y:y + 1024, x:x + 1912]
+
+    img = crop(image).astype(np.uint16).reshape(256, 4, 478, 4, 3)
+    img = ((img[:, 1:3, :, 1:3].sum(axis=(1, 3)) + 2) // 4).astype(np.uint8)
+    lbl = crop(label)[::4, ::4]
+    if dataset == "gta":
+        table = {tuple(int(v) for v in c): t
+                 for c, t in cs_labels.color2trainId.items()}
+        flat = lbl.reshape(-1, 3)
+        keys = [tuple(int(v) for v in c) for c in flat]
+        train = np.array([table[k] for k in keys]).reshape(lbl.shape[:2])
+    else:
+        lut = np.arange(256)
+        for k, v in cs_labels.id2trainId.items():
+            lut[k] = v
+        train = lut[lbl]
+    return img, train
+
+
+def gta_overrides(data: str, splits: str, save_dir: str, seed: int,
+                  version: str, epochs: int, extra=()) -> list:
+    return [f"data_input_dir={data}", f"save_dir={save_dir}",
+            f"datamodule.dataset.splits_path={splits}", f"seed={seed}",
+            f"version={version}", f"max_epochs={epochs}"] + list(extra)
+
+
+def gta_train_cli(config: str, overrides: list, label: str, card: str):
+    """The training CLI on a GTA config under PyTorch's default (cuDNN
+    TF32 on): its checkpoint, seconds, epoch lines and K1-K3 launches
+    (none expected)."""
+    import io
+    from values_tpu_torch.training.main import main as train_main
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), tf32(True):
+        ckpt = train_main(["--config-name", config] + overrides)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    lines = [line for line in out.getvalue().splitlines()
+             if line.startswith("epoch ")]
+    losses = [float(line.split("train_loss=")[1].split()[0])
+              for line in lines]
+    log(f"training CLI {label}: " + " | ".join(lines) + f"; {seconds:.2f} "
+        f"s; launches {json.dumps(launches)}; card {card}")
+    if not os.path.exists(ckpt) or not losses or not all(
+            np.isfinite(losses)) or any(launches.values()):
+        raise AssertionError(f"training CLI {label}: checkpoint {ckpt}, "
+                             f"losses {losses}, launches {launches}")
+    return ckpt, seconds, lines
+
+
+def gta_step_numbers(exp, state, batch, label: str, card: str,
+                     allow_tf32: bool) -> dict:
+    """ms a training step and images trained/s (median, min-max over
+    GTA_TIMED_STEPS after 2 warm-up steps, host clock ending in a
+    synchronize), peak memory, one profiled step: device time by kernel
+    family, idle share, host ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(exp.device).manual_seed(0)
+
+    def step():
+        exp.train_step(state, batch, gen)
+
+    with tf32(allow_tf32):
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(GTA_TIMED_STEPS):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    table = prof.key_averages()
+    name = re.sub(r"\W+", "_", label).strip("_")
+    with open(os.path.join(OUT_DIR, f"profile_gta_step_{name}.txt"),
+              "w") as fh:
+        fh.write(table.table(sort_by="self_device_time_total",
+                             row_limit=40, max_name_column_width=120))
+    families = kernel_families(table)
+    busy = sum(families.values())
+    n = batch["data"].shape[0]
+    med = statistics.median(times)
+    out = {"median_ms": med, "min_ms": min(times), "max_ms": max(times),
+           "images_per_s": n / med * 1e3, "min_ips": n / max(times) * 1e3,
+           "max_ips": n / min(times) * 1e3, "peak_gb": peak,
+           "busy_ms": busy, "wall_ms": wall,
+           "idle": None if not busy else 1 - busy / wall,
+           "families": families}
+    log(f"HRNet-W48 training step {label}, batch {n} x "
+        f"{tuple(batch['data'].shape[1:3])}: steps " + " / ".join(
+            f"{t:.2f}" for t in times) + f" ms, median {med:.2f} ms, "
+        f"{out['images_per_s']:.2f} images trained/s ({out['min_ips']:.2f}-"
+        f"{out['max_ips']:.2f}), peak {peak:.2f} GB; one profiled step: "
+        f"device {busy:.2f} of {wall:.2f} ms wall, idle share "
+        + ("not measured" if not busy else f"{out['idle']:.3f}")
+        + "; by family " + ", ".join(f"{k} {v:.2f} ms"
+                                     for k, v in families.items())
+        + f"; host {host_ops(table)}; card {card}")
+    return out
+
+
+def gta_first_step_checks(cfg, variables, batch, card: str) -> dict:
+    """The first training step's loss, gradient and BN running statistics
+    on the first GTA_CPU_BATCH images, from the same weights: the card's
+    float64 against the CPU's (the same function: GTA_F64_BOUND); the
+    card's float32 (TF32 off) against the CPU's loss, and against the
+    float64 step no further than GTA_F32_FACTOR times the CPU's own
+    float32 (gradient and statistics: float32 alone puts this random
+    HRNet-W48's gradient 1.5-1.9% off float64's on an H100); PyTorch's
+    default (TF32) against TF32 off (GTA_TF32_BOUNDS).
+    The biases of the convs feeding a BatchNorm (true gradient 0) are
+    left out of the gradient comparison."""
+    import torch
+    from values_tpu_torch.training.experiment import Experiment
+
+    def run(device, dtype, allow_tf32):
+        exp = Experiment(cfg, device)
+        state = exp.state_from_variables(variables)
+        state.params.to(dtype)
+        gen = torch.Generator(exp.device).manual_seed(0)
+        small = {k: v[:GTA_CPU_BATCH].to(exp.device) for k, v in
+                 batch.items()}
+        small["data"] = small["data"].to(dtype)
+        t0 = time.perf_counter()
+        with tf32(allow_tf32):
+            loss = exp.loss(state.params, small, gen)
+            loss.backward()
+        grads = {n: p.grad.detach().double().cpu()
+                 for n, p in state.params.named_parameters()
+                 if not (n.endswith("bias") and n.startswith(
+                     ("last_layer.0", "cov_factor_conv.0")))}
+        stats = {k: v.detach().double().cpu() for k, v in
+                 state.params.state_dict().items() if "running" in k}
+        return (float(loss.detach()), grads, stats,
+                time.perf_counter() - t0)
+
+    runs = {key: run(*key) for key in (
+        ("cpu", torch.float64, False), ("cpu", torch.float32, False),
+        ("cuda", torch.float64, False), ("cuda", torch.float32, False),
+        ("cuda", torch.float32, True))}
+
+    def norm(gs):
+        return float(sum((g ** 2).sum() for g in gs.values()).sqrt())
+
+    def apart(a, b):
+        """loss rel, gradient |a - b| / |b|, gradient norm rel, the worst
+        leaf's |a - b| / |b|, BN statistics max|a - b| / max|b|."""
+        la, ga, sa, _ = runs[a]
+        lb, gb, sb, _ = runs[b]
+        leaf = {n: float((ga[n] - gb[n]).norm() / gb[n].norm())
+                for n in gb if float(gb[n].norm()) > 0}
+        worst = max(leaf, key=leaf.get)
+        return {"loss": abs(la - lb) / abs(lb),
+                "grad": norm({n: ga[n] - gb[n] for n in gb}) / norm(gb),
+                "norm": abs(norm(ga) - norm(gb)) / norm(gb),
+                "leaf": leaf[worst], "leaf_name": worst,
+                "stats": max(float((sa[k] - v).abs().max())
+                             / max(float(v.abs().max()), 1e-30)
+                             for k, v in sb.items())}
+
+    f64 = ("cpu", torch.float64, False)
+    out = {"card f64 vs CPU f64": apart(("cuda", torch.float64, False), f64),
+           "CPU f32 vs CPU f64": apart(("cpu", torch.float32, False), f64),
+           "card f32 vs CPU f64": apart(("cuda", torch.float32, False), f64),
+           "card f32 vs CPU f32": apart(("cuda", torch.float32, False),
+                                        ("cpu", torch.float32, False)),
+           "TF32 vs off": apart(("cuda", torch.float32, True),
+                                ("cuda", torch.float32, False))}
+    log(f"GTA first step, HRNet-W48, batch {GTA_CPU_BATCH} at "
+        f"{tuple(batch['data'].shape[1:3])}, loss {runs[f64][0]:.9f} "
+        f"(CPU float64, {runs[f64][3]:.1f} s): " + "; ".join(
+            f"{k}: loss rel {v['loss']:.2e}, gradient {v['grad']:.2e} of "
+            f"the norm, norm rel {v['norm']:.2e}, worst leaf {v['leaf']:.2e}"
+            f" ({v['leaf_name']}), BN statistics {v['stats']:.2e}"
+            for k, v in out.items())
+        + f"; bounds: float64 {GTA_F64_BOUND:g}; card f32 loss "
+        f"{GTA_CPU_LOSS_BOUND:g} of the CPU's, gradient and statistics "
+        f"within {GTA_F32_FACTOR:g}x the CPU f32's distance from float64; "
+        f"TF32 {json.dumps(GTA_TF32_BOUNDS)}; card {card}")
+    card64, cpu32, card32 = (out["card f64 vs CPU f64"],
+                             out["CPU f32 vs CPU f64"],
+                             out["card f32 vs CPU f64"])
+    misses = [what for what, bad in (
+        ("float64 loss", card64["loss"] > GTA_F64_BOUND),
+        ("float64 gradient", card64["grad"] > GTA_F64_BOUND),
+        ("float64 statistics", card64["stats"] > GTA_F64_BOUND),
+        ("float32 loss", out["card f32 vs CPU f32"]["loss"]
+         > GTA_CPU_LOSS_BOUND),
+        ("float32 gradient", card32["grad"]
+         > GTA_F32_FACTOR * cpu32["grad"]),
+        ("float32 statistics", card32["stats"]
+         > GTA_F32_FACTOR * cpu32["stats"]),
+        ("TF32 loss", out["TF32 vs off"]["loss"] > GTA_TF32_BOUNDS["loss"]),
+        ("TF32 gradient norm", out["TF32 vs off"]["norm"]
+         > GTA_TF32_BOUNDS["norm"]),
+        ("TF32 statistics", out["TF32 vs off"]["stats"]
+         > GTA_TF32_BOUNDS["stats"])) if bad]
+    if misses:
+        raise AssertionError(f"GTA first step missed: {misses}")
+    return out
+
+
+def gta_task_results(base: str) -> dict:
+    """eval_config_gta's task files: thresholds finite; every model's
+    Platt parameters finite; AUROC and detection rates, ACE in [0, 1];
+    AURC finite; NCC in [-1, 1] or NaN (R3). Returns the means."""
+    def load(*parts):
+        with open(os.path.join(*parts)) as f:
+            return json.load(f)
+
+    thresholds = load(base, "threshold_analysis.json")
+    if not all(np.isfinite(v) for d in thresholds.values()
+               for v in d.values()):
+        raise AssertionError(f"thresholds: {thresholds}")
+    out = {"thresholds": thresholds.get("Mean")}
+    for model in GTA_EVAL_MODELS:
+        version = ("fold0_rank10_seed123" if model == "SSN"
+                   else "fold0_seed123")
+        exp = os.path.join(base, model, "test_results", version)
+        platt = load(exp, "platt_scale_params.json")
+        ood = load(exp, "ood_detection.json")
+        values = (list(_metric_leaves(ood, "ood_detection_rate"))
+                  + list(_metric_leaves(ood, "auroc")))
+        if not platt or not all(np.isfinite(v) for d in platt.values()
+                                for v in d.values()) or not values or \
+                not all(0 <= v <= 1 for v in values):
+            raise AssertionError(f"{model}: Platt {platt}, OoD {ood}")
+        for split in ("id", "ood"):
+            for name in ("failure_detection.json", "calibration.json",
+                         "ambiguity_modeling.json"):
+                path = os.path.join(exp, split, name)
+                if not os.path.exists(path):
+                    raise AssertionError(f"{path} missing")
+                leaves = [v for v in _json_numbers(load(path))]
+                if not leaves or any(
+                        not np.isfinite(v) for v in leaves
+                        if "ambiguity" not in name):
+                    raise AssertionError(f"{path}: {load(path)}")
+        out[model] = {"auroc": float(np.mean(list(_metric_leaves(
+            ood, "auroc"))))}
+    return out
+
+
+def _json_numbers(node):
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _json_numbers(v)
+    elif isinstance(node, list):
+        for v in node:
+            yield from _json_numbers(v)
+    elif isinstance(node, (int, float)) and not isinstance(node, bool):
+        yield float(node)
+
+
+def gta_training_path(card: str) -> dict:
+    """GTA's training half at HRNet-W48's published widths: the raw GTA5
+    and Cityscapes trees at their published sizes written as PNGs (every
+    filter, one palette file), preprocessing and splits through the
+    CLI (each output checked against the script's own crop and resize);
+    the training CLI on gta_softmax_config (2 epochs, seeds 123 and 124),
+    gta_ssn_config (2 epochs, the first mean-only),
+    model=hrnet_config_dropout_final (1 epoch) under PyTorch's default and
+    gta_softmax_config in bf16; training steps timed and profiled (f32
+    under the default and with TF32 off, bf16); the first step against
+    the CPU and P2; test_2d on the trained checkpoints (Softmax, the
+    2-member Ensemble, Dropout-Final, TTA, SSN) over val, id, ood and
+    unlabeled; eval_config_gta's six tasks on seed 123, each timed. Cuts:
+    24 + 8 raw images (of the archives' ~25,000 + 5,000), 2 epochs (of
+    300), pretrain_epochs 1 (of 5), random initial weights (ImageNet's
+    would need a download), the SSN's learning rate (GTA_SSN_LR). No
+    launch of K1-K3 anywhere in it."""
+    import io
+    import torch
+    from values_tpu_torch.config import compose, make_config
+    from values_tpu_torch.data import gta_preprocess
+    from values_tpu_torch.evaluation import EvalExperiments
+    from values_tpu_torch.inference import test_2d
+    from values_tpu_torch.training.experiment import Experiment
+    from values_tpu_torch.training.loops import (_device_batch,
+                                                 build_datamodule)
+    t_phase = time.perf_counter()
+    reset_launches()
+    root = tempfile.mkdtemp(dir=OUT_DIR, prefix="gta_train_")
+    raw, data = os.path.join(root, "raw"), os.path.join(root, "GTA")
+    t0 = time.perf_counter()
+    written = write_raw_gta(raw, SEED)
+    write_s = time.perf_counter() - t0
+
+    # preprocessing and splits through the CLI
+    seconds = {}
+    for dataset, sub in (("gta", "OriginalData"),
+                         ("cityscapes", "CityScapesOriginalData")):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            gta_preprocess.main([
+                "preprocess", "--dataset_path", os.path.join(raw, sub),
+                "--save_path", os.path.join(data, sub), "--dataset",
+                dataset])
+        seconds[dataset] = time.perf_counter() - t0
+    splits = os.path.join(data, "splits", "firstCycle", "splits.pkl")
+    gta_preprocess.main(["splits", "--dataset_path", data,
+                         "--original_dataset_path", raw, "--splits_path",
+                         splits, "--seed", "123"])
+    checked = 0
+    for dataset, sub in (("gta", "OriginalData"),
+                         ("cityscapes", "CityScapesOriginalData")):
+        for name, (image, label) in written[dataset].items():
+            if dataset == "gta" and f"{name}.png" in (
+                    gta_preprocess.CORRUPT_GTA_FILES):
+                continue
+            want_img, want_lbl = expected_preprocessed(image, label, dataset)
+            pre = os.path.join(data, sub, "preprocessed")
+            got_img = np.load(os.path.join(pre, "images", f"{name}.npy"))
+            got_lbl = np.load(os.path.join(pre, "labels", f"{name}.npy"))
+            if got_img.dtype != np.uint8 or not np.array_equal(
+                    got_img, want_img) or not np.array_equal(got_lbl,
+                                                             want_lbl):
+                raise AssertionError(f"preprocessed {dataset} {name} "
+                                     "differs from the script's own")
+            checked += 1
+    with open(splits, "rb") as f:
+        fold = pickle.load(f)[0]
+    n_raw = GTA_RAW_IMAGES + CS_RAW_IMAGES
+    log(f"GTA preprocessing: {GTA_RAW_IMAGES} GTA PNG pairs at "
+        f"{GTA_RAW_HW[1]}x{GTA_RAW_HW[0]} and {CS_RAW_IMAGES} Cityscapes at "
+        f"{CS_RAW_HW[1]}x{CS_RAW_HW[0]} written in {write_s:.1f} s (every "
+        f"PNG filter, one palette label); the CLI: GTA {seconds['gta']:.2f}"
+        f" s ({seconds['gta'] / GTA_RAW_IMAGES:.3f} s an image), Cityscapes"
+        f" {seconds['cityscapes']:.2f} s "
+        f"({seconds['cityscapes'] / CS_RAW_IMAGES:.3f} s an image); "
+        f"{checked} of {n_raw} outputs "
+        f"equal to the script's own crop and resize; splits: "
+        + ", ".join(f"{k} {len(v)}" for k, v in fold.items())
+        + f"; card {card}")
+
+    # training through the CLI, under PyTorch's default (TF32)
+    train_dir = os.path.join(root, "train")
+    runs, ckpts = {}, {}
+    for seed in GTA_TRAIN_SEEDS:
+        ckpts[f"softmax {seed}"], s, _ = gta_train_cli(
+            "gta_softmax_config", gta_overrides(
+                data, splits, train_dir, seed, f"fold0_seed{seed}",
+                GTA_TRAIN_EPOCHS, ["exp_name=Softmax"]),
+            f"gta_softmax_config seed {seed} f32", card)
+        runs[f"softmax {seed} f32"] = s
+    ckpts["ssn"], runs["ssn f32"], _ = gta_train_cli(
+        "gta_ssn_config", gta_overrides(
+            data, splits, train_dir, 123, "fold0_rank10_seed123",
+            GTA_TRAIN_EPOCHS, ["pretrain_epochs=1", "exp_name=SSN",
+                               f"learning_rate={GTA_SSN_LR}"]),
+        f"gta_ssn_config seed 123 f32 (pretrain_epochs 1, learning_rate "
+        f"{GTA_SSN_LR:g})", card)
+    ckpts["dropout"], runs["dropout f32"], _ = gta_train_cli(
+        "gta_softmax_config", gta_overrides(
+            data, splits, train_dir, 123, "fold0_seed123", 1,
+            ["model=hrnet_config_dropout_final", "exp_name=Dropout-Final"]),
+        "gta_softmax_config model=hrnet_config_dropout_final seed 123 f32",
+        card)
+    ckpts["bf16"], runs["softmax 123 bf16"], _ = gta_train_cli(
+        "gta_softmax_config", gta_overrides(
+            data, splits, train_dir, 123, "bf16", GTA_TRAIN_EPOCHS,
+            ["precision=bf16", "exp_name=Softmax-bf16"]),
+        "gta_softmax_config seed 123 bf16", card)
+
+    # the training step: timed and profiled, held against the CPU
+    cfg = compose(os.path.join(REPO, "configs"), "gta_softmax_config",
+                  gta_overrides(data, splits, train_dir, 123, "steps", 1))
+    exp = Experiment(cfg, "cuda")
+    state = exp.init_state_2d(123, 256, 478, 3)
+    variables = {c: {m: {k: v.copy() for k, v in leaves.items()}
+                     for m, leaves in tree.items()}
+                 for c, tree in exp.variables(state).items()}
+    dm = build_datamodule(cfg)
+    dm.setup("fit")
+    batch = _device_batch(next(iter(dm.train_dataloader())), exp.device)
+    steps = {"f32 (TF32 default)": gta_step_numbers(
+        exp, state, batch, "f32 (TF32 default)", card, True),
+        "f32 (TF32 off)": gta_step_numbers(
+            exp, state, batch, "f32 (TF32 off)", card, False)}
+    cfg16 = make_config(dict(cfg.to_container(), precision="bf16"))
+    exp16 = Experiment(cfg16, "cuda")
+    steps["bf16"] = gta_step_numbers(exp16, exp16.state_from_variables(
+        variables), batch, "bf16", card, True)
+    del state
+    checks = gta_first_step_checks(cfg, variables, batch, card)
+
+    # test_2d on the trained checkpoints, laid out for eval_config_gta
+    eval_base = os.path.join(root, "eval")
+    sets = {"Softmax": ([ckpts["softmax 123"]], []),
+            "Ensemble": ([ckpts[f"softmax {s}"] for s in GTA_TRAIN_SEEDS],
+                         []),
+            "Dropout-Final": ([ckpts["dropout"]],
+                              ["--n_pred", str(GTA_N_PRED)]),
+            "TTA": ([ckpts["softmax 123"]], ["-tta"]),
+            "SSN": ([ckpts["ssn"]], ["--n_pred", str(GTA_N_PRED)])}
+    test_runs = {}
+    for model, (paths, flags) in sets.items():
+        for split in GTA_EVAL_SPLITS:
+            t0 = time.perf_counter()
+            with tf32(True):
+                tester = test_2d.main(
+                    ["--checkpoint_paths", *paths, "--test_split", split,
+                     "--save_dir", eval_base, "--exp_name", model,
+                     "--test_batch_size", str(GTA_BATCH)] + flags)
+            torch.cuda.synchronize()
+            dice = tester.results_dict["mean"]["metrics"]["dice"]
+            test_runs[f"{model} {split}"] = {
+                "seconds": time.perf_counter() - t0,
+                "images": len(tester.results_dict) - 1, "dice": dice}
+            if not 0 <= dice <= 1:
+                raise AssertionError(f"test_2d {model} {split}: Dice {dice}")
+            del tester
+    log("test_2d on the trained checkpoints (TF32 default): " + "; ".join(
+        f"{k} {v['images']} images {v['seconds']:.2f} s Dice "
+        f"{v['dice']:.4f}" for k, v in test_runs.items()) + f"; card {card}")
+
+    # eval_config_gta's six tasks on seed 123, one at a time
+    eval_cfg = compose(os.path.join(REPO, "configs", "evaluation"),
+                       "eval_config_gta",
+                       [f"base_path={eval_base}",
+                        "GTA.iter_params.seed=['123']",
+                        f"GTA.datamodule_config.data_input_dir={data}",
+                        f"GTA.datamodule_config.dataset.splits_path={splits}"])
+    eval_cfg["task_params"]["ood_detection"]["function"][
+        "base_splits_path"] = os.path.join(data, "splits")
+    task_s = {}
+    import warnings
+    for task in GTA_EVAL_TASKS:
+        eval_cfg["tasks"] = [task]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            EvalExperiments(eval_cfg).analyse()
+        task_s[task] = time.perf_counter() - t0
+        if "Could not find" in out.getvalue():
+            raise AssertionError(f"evaluation {task}: {out.getvalue()}")
+    results = gta_task_results(eval_base)
+    log("eval_config_gta on seed 123 (5 models, val/id/ood/unlabeled): "
+        "seconds per task " + ", ".join(f"{t} {s:.2f}"
+                                        for t, s in task_s.items())
+        + f"; results {json.dumps(results)}; card {card}")
+
+    launches = read_launches()
+    shutil.rmtree(root)
+    seconds_phase = time.perf_counter() - t_phase
+    log(f"GTA training phase: {seconds_phase:.1f} s; K1-K3 launches "
+        f"{json.dumps(launches)} (none expected); card {card}")
+    if any(launches.values()):
+        raise AssertionError(f"the GTA training phase launched {launches}")
+    return {"preprocess_s_per_image": {
+        k: v / (GTA_RAW_IMAGES if k == "gta" else CS_RAW_IMAGES)
+        for k, v in seconds.items()}, "runs": runs, "steps": steps,
+        "checks": checks, "test_2d": test_runs, "tasks": task_s,
+        "seconds": seconds_phase}
+
+
+def f2_training_step(card: str) -> dict:
+    """F2 on a training step: softmax_config at initial_filter_size 12 in
+    bf16 (K1 and the dx entry zero-pad 12 channels to 16), one step on a
+    batch of 2 at 64^3 through Experiment, its loss finite and near the
+    f32 step's (which runs these shapes unpadded), K1 and K1b launched."""
+    import torch
+    from values_tpu_torch.config import compose
+    from values_tpu_torch.training.experiment import Experiment
+    losses = {}
+    gen = np.random.RandomState(3)
+    batch = {"data": torch.from_numpy(gen.rand(2, PATCH, PATCH, PATCH, 1)
+                                      .astype(np.float32)).cuda(),
+             "seg": torch.from_numpy(gen.randint(0, CLASSES, (2, PATCH,
+                                                             PATCH, PATCH)))
+             .cuda()}
+    for precision in ("32", "bf16"):
+        cfg = compose(os.path.join(REPO, "configs"), "softmax_config",
+                      ["model.initial_filter_size=12",
+                       f"precision={precision}"])
+        exp = Experiment(cfg, "cuda")
+        state = exp.init_state(SEED, PATCH)
+        reset_launches()
+        _, loss = exp.train_step(state, batch,
+                                 torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        losses[precision] = float(loss)
+        if precision == "bf16" and (not launches["conv3d_fused"]
+                                    or not launches["conv3d_fused_train"]):
+            raise AssertionError(f"F2 step: launches {launches}")
+    rel = abs(losses["bf16"] - losses["32"]) / abs(losses["32"])
+    log(f"F2: softmax_config at initial_filter_size 12, one step at 64^3, "
+        f"batch 2: bf16 (channels padded 12 -> 16 in K1 and the dx entry) "
+        f"loss {losses['bf16']:.6f} against f32 {losses['32']:.6f}, rel "
+        f"{rel:.2e} (bound 1e-2); launches {json.dumps(launches)}; card "
+        f"{card}")
+    if not np.isfinite(losses["bf16"]) or rel > 1e-2:
+        raise AssertionError(f"F2 step: losses {losses}")
+    return {"losses": losses, "rel": rel, "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4918,13 +5647,15 @@ def main() -> int:
         k3_sass = check_stats_build(stats_lib)
 
     with phase("K1 check", smi):
-        check_k1()
+        k1_padded = check_k1()
     with phase("K2 check", smi):
         check_k2()
     with phase("K3 check", smi):
         check_k3()
     with phase("K1b check", smi):
-        check_k1b()
+        _, k1b_padded = check_k1b()
+    with phase("F2: a bf16 training step at initial_filter_size 12", smi):
+        f2_training_step(smi)
     with phase("deterministic path", smi):
         launches, vps, (vols, gt), grouped = main_path(smi)
     with phase("aleatoric path", smi):
@@ -4965,6 +5696,9 @@ def main() -> int:
                    time_k2(launches, grouped, vols),
                    time_k3(a_launches, a_grouped, a_vols)]
         kernels[-1]["sass"] = k3_sass
+        # F2: the bf16 shapes K1 and K1b's dx run zero-padded
+        kernels[0]["f2_padded"] = k1_padded
+        kernels[1]["f2_padded"] = k1b_padded
         # the launches of the other paths, each counted from 0 in its run
         kernels[0]["test_3d_f32"] = time_k1_f32_chunk()
         kernels[0]["path_launches"] = dict(
@@ -5078,6 +5812,8 @@ def main() -> int:
                     "conv3d_fused_train"]
     with phase("2D path", smi):
         twod = twod_path(smi)
+    with phase("GTA training path", smi):
+        gta = gta_training_path(smi)
     log(f"headline: {vps:.2f} volumes/s deterministic, {a_vps:.2f} "
         f"volumes/s aleatoric ({N_ALEATORIC} samples) (ensemble-{N_MEMBERS},"
         f" {PATCH}^3, bf16, batch {BATCH}); training "
@@ -5128,6 +5864,18 @@ def main() -> int:
         + f"; sliding window {twod['sliding_s']:.3f} s per "
         f"{GTA_FULL_HW[0]}x{GTA_FULL_HW[1]} image; the phase "
         f"{twod['seconds']:.1f} s; card {smi}")
+    log("headline, the GTA pipeline's training half (HRNet-W48, batch "
+        f"{GTA_BATCH} x {GTA_HW[0]}x{GTA_HW[1]}; median of {GTA_TIMED_STEPS} "
+        "steps, min-max): " + "; ".join(
+            f"{n} {r['median_ms']:.2f} ms a step, {r['images_per_s']:.2f} "
+            f"({r['min_ips']:.2f}-{r['max_ips']:.2f}) images trained/s, "
+            f"idle {r['idle'] if r['idle'] is None else round(r['idle'], 3)}"
+            f", peak {r['peak_gb']:.2f} GB" for n, r in gta["steps"].items())
+        + "; preprocessing s an image " + ", ".join(
+            f"{k} {v:.3f}" for k, v in gta["preprocess_s_per_image"].items())
+        + "; eval_config_gta seconds " + ", ".join(
+            f"{t} {s:.2f}" for t, s in gta["tasks"].items())
+        + f"; the phase {gta['seconds']:.1f} s; card {smi}")
     log(f"the script: {time.perf_counter() - T_START:.1f} s from its "
         f"imports to its last phase's end; card {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)

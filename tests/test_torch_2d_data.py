@@ -72,21 +72,77 @@ def test_transform_matches_jax_under_the_same_seed(name):
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
+TRAIN_ONLY = {
+    "Rotate": {"limit": 22.5, "border_mode": 0, "mask_value": 255,
+               "p": 1.0},
+    "RandomScale": {"scale_limit": [-0.3, 0.3], "p": 1.0},
+}
+
+
 @pytest.mark.parametrize("name", ["Rotate", "RandomScale"])
 def test_training_transforms_raise_naming_2d(name):
-    with pytest.raises(NotImplementedError, match="'2D'"):
-        PA.get_augmentations_from_config([{name: {}}])
+    """The TRAIN pipeline's cv2 transforms, redone in numpy, against the
+    JAX ones (cv2) under the same seeds on 12 shapes: masks equal, images
+    within 1e-2 on 0-255 values (cv2 rounds its warp's source point to
+    1/32 pixel; 1.5e-3 measured), same shapes and types."""
+    rng = np.random.RandomState(1)
+    worst = 0.0
+    for trial in range(12):
+        h, w = rng.randint(20, 70), rng.randint(20, 110)
+        img = (rng.rand(h, w, 3) * 255).astype(np.uint8)
+        mask = rng.randint(0, 19, size=(h, w)).astype(np.int64)
+        outs = []
+        for mod in (JA, PA):
+            _seeded(trial)
+            t = mod.get_augmentations_from_config(
+                [{name: TRAIN_ONLY[name]}])[0]
+            outs.append(t(image=img, mask=mask))
+        want, got = outs
+        for key in ("image", "mask"):
+            assert got[key].shape == want[key].shape, (trial, key)
+            assert got[key].dtype == want[key].dtype, (trial, key)
+        np.testing.assert_array_equal(got["mask"], want["mask"])
+        worst = max(worst, float(np.abs(got["image"] - want["image"]).max()))
+    assert worst < 1e-2
+
+
+def _train_batches(pkg, hparams, epochs=2):
+    node, inst = ((jax_make_config, jax_instantiate) if pkg == "jax"
+                  else (make_config, instantiate))
+    _seeded(hparams["seed"])
+    dm = inst(node(dict(hparams["datamodule"], _recursive_=False)),
+              data_input_dir=hparams["data_input_dir"],
+              augmentations=hparams["AUGMENTATIONS"], seed=hparams["seed"],
+              max_epochs=epochs)
+    dm.setup("fit")
+    loader = dm.train_dataloader()
+    return dm, [list(loader) for _ in range(epochs)]
 
 
 def test_setup_fit_reaches_the_training_refusal(gta_tree, tmp_path):
+    """``setup("fit")`` builds the TRAIN pipeline, and two epochs of the
+    train loader (shuffled by ``RandomState(seed + epoch)``, the last
+    batch dropped) equal the JAX loader's under the same host seeds:
+    ``seg`` exactly, ``data`` within 1e-4 (the Rotate images' 1.5e-3 on
+    0-255, divided by Normalize's 255 std)."""
     hp = _hrnet_hparams(gta_tree, tmp_path)
-    dm = instantiate(make_config(dict(hp["datamodule"], _recursive_=False)),
-                     data_input_dir=str(gta_tree),
-                     augmentations=hp["AUGMENTATIONS"], seed=hp["seed"])
-    with pytest.raises(NotImplementedError, match="'2D'"):
-        dm.setup("fit")
+    hp["datamodule"]["batch_size"] = 1
+    _, want = _train_batches("jax", hp)
+    dm, got = _train_batches("torch", hp)
+    assert isinstance(dm, BaseDataModule)
+    assert [len(e) for e in got] == [len(e) for e in want] == [2, 2]
+    for g_epoch, w_epoch in zip(got, want):
+        for g, w in zip(g_epoch, w_epoch):
+            assert sorted(g) == sorted(w)
+            assert g["seg"].dtype == w["seg"].dtype
+            np.testing.assert_array_equal(g["seg"], w["seg"])
+            assert g["data"].dtype == w["data"].dtype == np.float32
+            np.testing.assert_allclose(g["data"], w["data"], rtol=0,
+                                       atol=1e-4)
+    assert (got[0][0]["seg"] == 255).any()  # the rotation's border
     dm.setup("validate")
     assert len(dm.DS_val) == 1 and len(dm.val_dataloader()) == 1
+    assert dm.max_steps() == 4
     assert get_max_steps(10, 3, 2, 1, 4) == (8, 2)
 
 

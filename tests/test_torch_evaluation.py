@@ -7,6 +7,7 @@ detection, failure detection, calibration, ambiguity modeling, both split
 generators) on two copies of one reference-layout results tree, every JSON
 and split pickle compared, the eval_experiments driver on
 eval_config_toy, and the targets the port refuses."""
+import copy
 import json
 import math
 import pickle
@@ -610,30 +611,76 @@ def test_every_evaluation_target_resolves_to_the_port(config):
 # refusals
 # ---------------------------------------------------------------------
 def test_gta_targets_raise_naming_2d(tmp_path):
-    """A GTA datamodule_config, or the GTA loaders, raise naming the
-    ROADMAP item "2D"; the visualization names "Evaluation, reporting"."""
+    """GTA's targets resolve to the port: a GTA datamodule_config builds
+    the 2D datamodule's test loader, whose n_reference_segs reference
+    segs equal the JAX loader's given as many (R13),
+    ``values_tpu.evaluation.gta`` and ``evaluation.utils.gta`` name the
+    port's loaders, whose predictions (read from a PNG the port writes)
+    equal the JAX ones and whose GT uncertainty is the JAX one in (H, W)
+    (R13); the visualization still raises naming "Evaluation,
+    reporting"."""
+    import values_tpu.evaluation.gta as J_GTA
+    from tests.test_2d_path import make_gta_tree
+    from values_tpu_torch.core.image_io import write_png_rgb
+    from values_tpu_torch.data.gta_preprocess import train_ids_to_color
+    gta = make_gta_tree(tmp_path / "data")
+    dm_config = {
+        "_target_": "values_tpu.data.base_datamodule.BaseDataModule",
+        "num_classes": 24, "ignore_index": 255, "num_workers": 0,
+        "batch_size": 2, "val_batch_size": 2, "data_fold_id": 0,
+        "data_input_dir": str(gta),
+        "augmentations": compose(ROOT / "configs" / "evaluation",
+                                 "eval_config_gta").to_container()[
+            "GTA_EVAL_AUGMENTATIONS"],
+        "dataset": {
+            "_target_": "values_tpu.data.cityscapes_dataset."
+                        "CityscapesDataset",
+            "splits_path": str(gta / "splits" / "firstCycle"
+                               / "splits.pkl")}}
     split = tmp_path / "GTA" / "test_results" / "fold0_seed123" / "id"
     (split / "pred_seg").mkdir(parents=True)
-    (split / "pred_seg" / "0001_01.png").write_bytes(b"")
-    version = P_EV.ExperimentVersion(
-        base_path=tmp_path, naming_scheme_version="fold{fold}_seed{seed}",
-        pred_model="GTA", image_ending=".png", unc_ending=".tif",
-        unc_types=["predictive_uncertainty"], aggregations=["patch_level"],
-        n_reference_segs=5, n_classes=24, fold=0, seed="123",
-        datamodule_config={
-            "_target_": "values_tpu.data.base_datamodule.BaseDataModule",
-            "num_classes": 24})
-    with pytest.raises(NotImplementedError, match="'2D'"):
-        P_DL.ExperimentDataloader(version, "id")
+    labels = np.random.RandomState(4).randint(0, 24, (32, 48))
+    write_png_rgb(str(split / "pred_seg" / "00003_mean.png"),
+                  train_ids_to_color(labels))
+    # the JAX loader draws the TEST pipeline's one mask; the port draws
+    # n_reference_segs (R13): the JAX side is given them explicitly
+    jax_config = copy.deepcopy(dm_config)
+    jax_config["augmentations"]["TEST"][0]["Compose"]["transforms"][1][
+        "StochasticLabelSwitches"]["n_reference_samples"] = 5
+    loaders = {}
+    for pkg, ev, dl in (("jax", J_EV, J_DL), ("port", P_EV, P_DL)):
+        version = ev.ExperimentVersion(
+            base_path=tmp_path, naming_scheme_version="fold{fold}_seed{seed}",
+            pred_model="GTA", image_ending=".png",
+            unc_ending=".tif", unc_types=["predictive_uncertainty"],
+            aggregations=["patch_level"], n_reference_segs=5, n_classes=24,
+            fold=0, seed="123",
+            datamodule_config=jax_config if pkg == "jax" else dm_config,
+            pred_seg_loading={
+                "_target_": "values_tpu.evaluation.gta.pred_seg_loading"},
+            gt_unc_map_loading={
+                "_target_": "values_tpu.evaluation.gta.gt_unc_map"})
+        loader = dl.ExperimentDataloader(version, "id")  # seeds the host
+        loaders[pkg] = (loader.image_ids,
+                        loader.get_reference_segs("00003"),
+                        loader.get_gt_unc_map("00003"),
+                        loader.get_mean_pred_seg("00003"))
+    ids, refs, gt_unc, pred = loaders["port"]
+    assert ids == loaders["jax"][0] == ["00003"]
+    assert refs.shape == (5, 32, 48)
+    np.testing.assert_array_equal(refs, loaders["jax"][1])
+    # the port's GT uncertainty is (H, W), as its TIFs; the JAX one (W, H)
+    np.testing.assert_array_equal(gt_unc, loaders["jax"][2].T)
+    np.testing.assert_array_equal(pred, loaders["jax"][3])
+    np.testing.assert_array_equal(loaders["port"][3], labels)
+    path = split / "pred_seg" / "00003_mean.png"
+    np.testing.assert_array_equal(locate(
+        "values_tpu.evaluation.gta.pred_seg_loading")(path),
+        J_GTA.pred_seg_loading(path))
     for target in ("values_tpu.evaluation.gta.gt_unc_map",
-                   "values_tpu.evaluation.gta.pred_seg_loading"):
-        with pytest.raises(NotImplementedError, match="'2D'"):
-            locate(target)
-    version.datamodule_config = None
-    version.pred_seg_loading = {
-        "_target_": "values_tpu.evaluation.gta.pred_seg_loading"}
-    with pytest.raises(NotImplementedError, match="'2D'"):
-        P_DL.ExperimentDataloader(version, "id").get_mean_pred_seg("0001")
+                   "values_tpu.evaluation.gta.pred_seg_loading",
+                   "evaluation.utils.gta.pred_seg_loading"):
+        assert locate(target).__module__ == "values_tpu_torch.evaluation.gta"
     for target in ("values_tpu.evaluation.visualization.ds_task_table.main",
                    "values_tpu.evaluation.visualization.ds_task_barplots."
                    "main"):

@@ -383,22 +383,41 @@ def test_refusals(toy, tmp_path, case, monkeypatch):
             native._load.cache_clear()
         return
     if case == "hrnet":
-        # the HRNet itself is ported (the 2D tester); training it is not
+        # the HRNet trains (tests/test_torch_training_2d.py): the
+        # Experiment builds its 2D state; the 3D entry and an aleatoric
+        # objective, which it has no head for, refuse
         from tests.test_hrnet import small_cfg
-        from values_tpu_torch.models.hrnet import get_seg_model
+        from values_tpu_torch.models.hrnet import (HighResolutionNet,
+                                                   get_seg_model)
         assert locate("values_tpu.models.hrnet.get_seg_model") is \
             get_seg_model
-        with pytest.raises(NotImplementedError, match="'2D'"):
-            Experiment(make_config({"model": {
-                "_target_": "values_tpu.models.hrnet.get_seg_model",
-                "cfg": small_cfg()}}), "cpu")
+        node = {"model": {"_target_": "values_tpu.models.hrnet."
+                                      "get_seg_model", "cfg": small_cfg()}}
+        exp = Experiment(make_config(node), "cpu")
+        assert exp.is_2d and not exp.is_ssn
+        state = exp.init_state_2d(0, 32, 32, 3)
+        assert isinstance(state.params, HighResolutionNet)
+        assert state.params.training
+        assert set(exp.variables(state)) == {"params", "batch_stats"}
+        with pytest.raises(ValueError, match="init_state_2d"):
+            exp.init_state(0, 16)
+        with pytest.raises(ValueError, match="aleatoric"):
+            Experiment(make_config(dict(node, aleatoric_loss=True)), "cpu")
+        return
+    if case == "2d":
+        # 2D training runs (tests/test_torch_fit_2d.py); data-parallel 2D
+        # training is the torch.distributed item and raises before the
+        # data is touched
+        with pytest.raises(NotImplementedError, match="torch.distributed"):
+            main(["--config-name", "gta_softmax_config", "--device", "cpu",
+                  f"data_input_dir={tmp_path / 'none'}",
+                  f"save_dir={tmp_path / 'exp'}", "gpus=2"])
         return
     name, extra = {
         "dropout": ("dropout_config", ["gpus=2"]),
         "ssn": ("ssn_config", ["gpus=2"]),
         "devices": ("softmax_config", ["gpus=2"]),
         "orbax": ("softmax_config", ["checkpoint_format=orbax"]),
-        "2d": ("softmax_config", ["+AUGMENTATIONS={}"]),
     }[case]
     args = _cli_args(toy, tmp_path / "exp", *extra)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -8,9 +8,9 @@ JAX package: a ``values_tpu.*`` or reference target with no counterpart
 yet raises ``NotImplementedError`` naming the ROADMAP.md item that ports
 it. :data:`PREFIX_ALIASES` maps whole modules: every
 ``values_tpu.evaluation.*`` target, and the reference's evaluation
-targets, onto ``values_tpu_torch.evaluation.*``, but GTA's evaluation
-loaders ("2D": 2D training and GTA evaluation) and the visualization
-("Evaluation, reporting"); a name that module does not hold raises
+targets (GTA's loaders, ``evaluation.utils.gta``, included), onto
+``values_tpu_torch.evaluation.*``, but the visualization ("Evaluation,
+reporting"); a name that module does not hold raises
 ``NotImplementedError`` too.
 """
 from __future__ import annotations
@@ -70,6 +70,7 @@ PREFIX_ALIASES: Dict[str, str] = {
     "values_tpu.evaluation.": f"{_EVAL}.",
     "evaluation.uncertainty_aggregation.": f"{_EVAL}.",
     "evaluation.metrics.": f"{_EVAL}.metrics.",
+    "evaluation.utils.gta.": f"{_EVAL}.gta.",
     "evaluation.split_file_generation.split_files_second_cycle.":
         f"{_EVAL}.split_file_generation.second_cycle.",
     "evaluation.split_file_generation.split_files_second_cycle_random.":
@@ -78,8 +79,6 @@ PREFIX_ALIASES: Dict[str, str] = {
 
 # module prefixes whose targets are not ported yet -> the ROADMAP.md item
 NOT_PORTED_PREFIXES: Dict[str, str] = {
-    "values_tpu.evaluation.gta.": "2D",
-    "evaluation.utils.gta.": "2D",
     "values_tpu.evaluation.visualization.": "Evaluation, reporting",
     "evaluation.visualization.": "Evaluation, reporting",
 }

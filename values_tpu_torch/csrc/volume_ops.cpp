@@ -5,7 +5,8 @@
 // the per-sample work (strided 3D crop, axis mirroring, additive Gaussian
 // noise) is a small C++ library driven via ctypes from
 // values_tpu_torch/data/native.py, which binds the mirror and the noise
-// that augment=True uses. The RNG is a dedicated xoshiro256++ stream per
+// that augment=True uses, and the PNG reader's sequential unfilters
+// (values_tpu_torch/core/image_io.py::read_png). The RNG is a dedicated xoshiro256++ stream per
 // call: statistics match the numpy pipeline contract, not bitwise torch
 // parity; the same flags as the JAX package's build give its bytes.
 //
@@ -15,6 +16,7 @@
 #include <cstdint>
 #include <cstring>
 #include <cmath>
+#include <cstdlib>
 
 namespace {
 
@@ -153,6 +155,30 @@ void zscore_f32(float* data, int64_t n, double eps) {
     float scale = static_cast<float>(1.0 / (std + eps));
     float m = static_cast<float>(mean);
     for (int64_t i = 0; i < n; ++i) data[i] = (data[i] - m) * scale;
+}
+
+// PNG unfiltering of one scanline in place (the PNG specification,
+// section 9): type 3 Average, type 4 Paeth, both sequential along the row.
+// cur holds n filtered bytes, prev the previous reconstructed row (zeros
+// for the first row), bpp the bytes of one pixel (at least 1).
+void png_unfilter_row(uint8_t* cur, const uint8_t* prev, int64_t n,
+                      int64_t bpp, int type) {
+    if (type == 3) {
+        for (int64_t i = 0; i < n; ++i) {
+            int a = i >= bpp ? cur[i - bpp] : 0;
+            cur[i] = static_cast<uint8_t>(cur[i] + ((a + prev[i]) >> 1));
+        }
+        return;
+    }
+    for (int64_t i = 0; i < n; ++i) {
+        int a = i >= bpp ? cur[i - bpp] : 0;
+        int b = prev[i];
+        int c = i >= bpp ? prev[i - bpp] : 0;
+        int p = a + b - c;
+        int pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
+        int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+        cur[i] = static_cast<uint8_t>(cur[i] + pred);
+    }
 }
 
 }  // extern "C"

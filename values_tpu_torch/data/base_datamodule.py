@@ -4,10 +4,9 @@ The port's copy of ``values_tpu/data/base_datamodule.py`` (reference:
 uncertainty_modeling/data/torch_dataloader.py:124-300): pipelines built
 from the YAML augmentation config per split, datasets instantiated from a
 ``dataset`` config node, ``max_steps()`` for the polynomial LR schedule,
-a train loader that shuffles and drops the last batch. ``setup("fit")``
-builds the TRAIN pipeline, whose ``Rotate`` raises ``NotImplementedError``
-until 2D training is ported (ROADMAP.md, Queue 1: "2D"); ``"test"`` and
-``"validate"`` run.
+a train loader that shuffles with ``RandomState(seed + epoch)`` and
+drops the last batch. The loaders run on the host in numpy; the trainer
+and the tester move each batch to the device.
 """
 from __future__ import annotations
 

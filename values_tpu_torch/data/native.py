@@ -1,6 +1,8 @@
-"""ctypes binding of the native volume ops (``csrc/volume_ops.cpp``) that
-``augment=True`` runs: the in-place axis mirror and the additive Gaussian
-noise of ``values_tpu/native/__init__.py`` (:102-123).
+"""ctypes binding of the native host ops (``csrc/volume_ops.cpp``): the
+in-place axis mirror and the additive Gaussian noise that
+``augment=True`` runs (``values_tpu/native/__init__.py``, :102-123), and
+the PNG reader's Average and Paeth unfilters
+(:func:`values_tpu_torch.core.image_io.read_png`).
 
 The library is built with g++ at first use into ``build/kernels/`` at the
 repository root (never beside the source), under a name that carries a
@@ -57,8 +59,11 @@ def _load() -> ctypes.CDLL:
     lib.mirror3d_i32.argtypes = [ip, ctypes.c_int64, ctypes.c_int]
     lib.add_gaussian_noise_f32.argtypes = [fp, ctypes.c_int64,
                                            ctypes.c_float, ctypes.c_uint64]
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    lib.png_unfilter_row.argtypes = [u8, u8, ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.c_int]
     for fn in (lib.mirror3d_f32, lib.mirror3d_i32,
-               lib.add_gaussian_noise_f32):
+               lib.add_gaussian_noise_f32, lib.png_unfilter_row):
         fn.restype = None
     return lib
 
@@ -103,6 +108,24 @@ def add_gaussian_noise(vol: np.ndarray, sigma: float, seed: int
         vol.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), vol.size,
         ctypes.c_float(sigma), ctypes.c_uint64(seed))
     return vol
+
+
+def png_unfilter_row(cur: np.ndarray, prev: np.ndarray, bpp: int,
+                     filter_type: int) -> None:
+    """Undo PNG filter 3 (Average) or 4 (Paeth) on the uint8 scanline
+    ``cur`` in place, given the reconstructed previous row ``prev``."""
+    if filter_type not in (3, 4):
+        raise ValueError(f"png_unfilter_row takes filters 3 and 4, not "
+                         f"{filter_type}")
+    _check(cur, (np.uint8,), "png_unfilter_row")
+    if prev.dtype != np.uint8 or prev.shape != cur.shape \
+            or not prev.flags["C_CONTIGUOUS"]:
+        raise ValueError("png_unfilter_row: prev must be a contiguous "
+                         "uint8 row of cur's length")
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    load_library().png_unfilter_row(cur.ctypes.data_as(u8),
+                                    prev.ctypes.data_as(u8), cur.size,
+                                    int(bpp), int(filter_type))
 
 
 # -- plain numpy versions, for the tests ----------------------------------------

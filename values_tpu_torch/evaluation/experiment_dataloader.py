@@ -10,8 +10,11 @@ host in numpy:
   first prediction's ``pred_prob`` files,
 - ``predictive_uncertainty`` maps to the ``pred_entropy`` directory,
 - reference segs from ``gt_seg/``, or from a datamodule re-instantiated
-  from a carried ``datamodule_config`` (the 2D GTA path, which the port
-  refuses until GTA evaluation is ported: ROADMAP.md, Queue 1, "2D"),
+  from a carried ``datamodule_config`` (the 2D GTA path; its TEST
+  pipeline draws ``n_reference_segs`` switched masks),
+- PNG and TIF maps read without cv2 or PIL
+  (:mod:`values_tpu_torch.core.image_io`: the arrays ``cv2.imread(path,
+  -1)`` gives),
 - GT uncertainty map = per-voxel variance across raters, or a configured
   loader,
 - mean pred seg = ``<id>_mean``, Softmax's ``<id>_01``.
@@ -30,6 +33,7 @@ import numpy as np
 
 from ..config import instantiate, make_config
 from ..core import nifti
+from ..core.image_io import read_png, read_tiff_float32
 from ..core.seed import set_seed
 from .experiment_version import ExperimentVersion
 
@@ -41,14 +45,28 @@ def _load_map(path) -> np.ndarray:
         return arr
     if path.endswith(".npy"):
         return np.load(path)
-    if path.endswith((".png", ".tif", ".tiff")):
-        import cv2
-        arr = cv2.imread(path, -1)
-        if arr is None:
-            from PIL import Image
-            arr = np.asarray(Image.open(path))
-        return arr
+    if path.endswith(".png"):
+        return read_png(path)
+    if path.endswith((".tif", ".tiff")):
+        return read_tiff_float32(path)
     raise ValueError(f"Unsupported map format: {path}")
+
+
+def _with_reference_samples(config: Dict, n: int) -> Dict:
+    """A datamodule config whose TEST pipeline's StochasticLabelSwitches
+    draws ``n`` masks (a copy; configs without one are returned as
+    they are)."""
+    import copy
+    config = copy.deepcopy(config)
+    test = (config.get("augmentations") or {}).get("TEST") or []
+    for step in test:
+        for name, node in dict(step).items():
+            for aug in (node or {}).get("transforms", []):
+                if "StochasticLabelSwitches" in aug:
+                    aug["StochasticLabelSwitches"] = dict(
+                        aug["StochasticLabelSwitches"] or {},
+                        n_reference_samples=n)
+    return config
 
 
 class ExperimentDataloader:
@@ -128,15 +146,15 @@ class ExperimentDataloader:
         return out
 
     def setup_dataloader(self):
-        if "base_datamodule" in str(
-                self.exp_version.datamodule_config.get("_target_", "")):
-            # GTA's reference segs come through the 2D datamodule with
-            # evaluation/gta.py's loaders, which belong to 2D training
-            raise NotImplementedError(
-                "GTA evaluation (a datamodule_config of the 2D datamodule) "
-                "is not ported yet (ROADMAP.md, Queue 1: '2D')")
-        dm = instantiate(make_config(dict(self.exp_version.datamodule_config,
-                                          _recursive_=False)),
+        """The carried datamodule's test loader over this split (GTA: the
+        2D datamodule, whose reference segs are its TEST pipeline's
+        switched masks, ``n_reference_segs`` of them, as the 2D tester's
+        ``--n_reference_samples`` draws them; the JAX loader keeps the
+        pipeline's one: ROADMAP.md reference hazard R13)."""
+        config = _with_reference_samples(
+            dict(self.exp_version.datamodule_config),
+            int(self.exp_version.n_reference_segs))
+        dm = instantiate(make_config(dict(config, _recursive_=False)),
                          test_split=self.dataset_split)
         dm.setup("test")
         return dm.test_dataloader()

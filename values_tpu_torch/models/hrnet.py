@@ -12,17 +12,24 @@ Submodules carry the reference's names, so the port's ``state_dict()``
 keys are the reference's torch keys (``conv1``, ``layer1.0.downsample.0``,
 ``stage2.0.branches.1.3.conv2``, ``stage3.1.fuse_layers.2.0.1.0``,
 ``last_layer.3``, ``cov_factor_conv.0``, ...) and a reference ``.ckpt``
-loads without a rewrite. The model is built for inference: BatchNorm
-runs on its running statistics (eps 1e-5), and :func:`get_seg_model`
-returns it in eval mode. Options:
+loads without a rewrite. :func:`get_seg_model` returns it in eval mode,
+where BatchNorm runs on its running statistics (eps 1e-5). In training
+mode (``model.train()``, the 2D trainer) BatchNorm normalizes with the
+batch's statistics and updates its running ones as flax's ``BatchNorm``
+does in the JAX package (:class:`BatchNorm2d`): with the *biased* batch
+variance, ``r = 0.9 r + 0.1 v`` (torch's own update takes the unbiased
+one; ROADMAP.md reference hazard R12). Options:
 
 - per-branch dropout inside BasicBlocks (the configs' STAGE3/4
-  ``DROPOUT``): a training-time dropout, so identity here, as in the JAX
-  package's inference;
+  ``DROPOUT``), p = 0.5 after the first ReLU: live in training mode,
+  identity in eval mode. (The JAX trainer leaves these deterministic:
+  its HRNet has no ``do_dropout``; the reference's torch module trains
+  with them live, as here.);
 - ``DROPOUT_FINAL``: p = 0.5 dropout on the four branch outputs on every
   pass, in every mode -- the 2D MC-dropout mechanism
-  (hrnet_module.py:642-646). Its keep masks are drawn with
-  ``torch.rand`` from the ``generator`` that ``forward`` must be given;
+  (hrnet_module.py:642-646). Its keep masks, and the branch dropouts',
+  are drawn with ``torch.rand`` from the ``generator`` that ``forward``
+  must then be given (:func:`dropout_final`);
 - the SSN head: a rank-R low-rank normal
   (:class:`~values_tpu_torch.models.ssn_unet3d.LowRankMVN`) over the
   flattened (class, pixel) logits. As in the reference, ``cov_diag`` is
@@ -31,6 +38,7 @@ returns it in eval mode. Options:
 """
 from __future__ import annotations
 
+import contextvars
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -48,8 +56,53 @@ def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
     return nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, bias=bias)
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=BN_MOMENTUM)
+# the running updates a training forward defers to its end (one pair of
+# foreach ops for all 306 BatchNorms instead of a few ops each)
+_PENDING = contextvars.ContextVar("hrnet_pending_bn_updates", default=None)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training-mode running update is flax's:
+    the batch mean and *biased* variance, computed in float32 (float64
+    for float64 input), enter ``r = (1 - m) r + m s`` with m =
+    ``BN_MOMENTUM`` (flax's momentum 0.9, ``values_tpu/models/hrnet.py``
+    :33, :82-86); inside :class:`HighResolutionNet`'s forward the update
+    waits for the forward's end (:func:`update_running_stats`). The
+    normalization itself is torch's (biased variance in both). Eval mode
+    is torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            stats = x if x.dtype == torch.float64 else x.to(torch.float32)
+            var, mean = torch.var_mean(stats, dim=(0, 2, 3), unbiased=False)
+        pending = _PENDING.get()
+        if pending is None:
+            update_running_stats([(self, mean, var)])
+        else:
+            pending.append((self, mean, var))
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+def update_running_stats(updates) -> None:
+    """``r = (1 - m) r + m s`` for each (BatchNorm, batch mean, batch
+    variance) of ``updates``, two foreach ops per statistic."""
+    if not updates:
+        return
+    keep = 1.0 - BN_MOMENTUM
+    with torch.no_grad():
+        for index, name in ((1, "running_mean"), (2, "running_var")):
+            running = [getattr(u[0], name) for u in updates]
+            torch._foreach_mul_(running, keep)
+            torch._foreach_add_(running, [u[index].to(r.dtype) for u, r in
+                                          zip(updates, running)],
+                                alpha=1.0 - keep)
+
+
+def _bn(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=1e-5, momentum=BN_MOMENTUM)
 
 
 def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
@@ -63,16 +116,22 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: Optional[nn.Module] = None):
+                 downsample: Optional[nn.Module] = None,
+                 dropout: bool = False):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride)
         self.bn1 = _bn(planes)
         self.conv2 = _conv(planes, planes, 3)
         self.bn2 = _bn(planes)
         self.downsample = downsample
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
+        if self.dropout and self.training:
+            out = dropout_final(out, generator)
         out = self.bn2(self.conv2(out))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(out + residual)
@@ -82,7 +141,7 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: Optional[nn.Module] = None):
+                 downsample: Optional[nn.Module] = None, **_kw):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 1)
         self.bn1 = _bn(planes)
@@ -92,7 +151,9 @@ class Bottleneck(nn.Module):
         self.bn3 = _bn(planes * 4)
         self.downsample = downsample
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
@@ -104,17 +165,24 @@ BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}
 
 
 def _layer(block: str, inplanes: int, planes: int, n_blocks: int,
-           stride: int = 1) -> nn.Sequential:
+           stride: int = 1, dropout: bool = False) -> nn.Sequential:
     cls = BLOCKS[block]
     downsample = None
     if stride != 1 or inplanes != planes * cls.expansion:
         downsample = nn.Sequential(
             _conv(inplanes, planes * cls.expansion, 1, stride),
             _bn(planes * cls.expansion))
-    layers = [cls(inplanes, planes, stride, downsample)]
-    layers += [cls(planes * cls.expansion, planes)
+    layers = [cls(inplanes, planes, stride, downsample, dropout=dropout)]
+    layers += [cls(planes * cls.expansion, planes, dropout=dropout)
                for _ in range(1, n_blocks)]
     return nn.Sequential(*layers)
+
+
+def _run_layer(layer: nn.Sequential, x: torch.Tensor,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    for block in layer:
+        x = block(x, generator)
+    return x
 
 
 class HighResolutionModule(nn.Module):
@@ -127,9 +195,11 @@ class HighResolutionModule(nn.Module):
         expansion = BLOCKS[block].expansion
         n = stage_cfg["NUM_BRANCHES"]
         channels = [c * expansion for c in stage_cfg["NUM_CHANNELS"]]
+        dropout = stage_cfg.get("DROPOUT", [False] * n)
         self.branches = nn.ModuleList(
             _layer(block, inchannels[b], stage_cfg["NUM_CHANNELS"][b],
-                   stage_cfg["NUM_BLOCKS"][b]) for b in range(n))
+                   stage_cfg["NUM_BLOCKS"][b], dropout=bool(dropout[b]))
+            for b in range(n))
         self.fuse_layers = None
         if n > 1:
             self.fuse_layers = nn.ModuleList(
@@ -154,8 +224,11 @@ class HighResolutionModule(nn.Module):
             steps.append(nn.Sequential(*step))
         return nn.Sequential(*steps)
 
-    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
-        xs = [branch(x) for branch, x in zip(self.branches, xs)]
+    def forward(self, xs: List[torch.Tensor],
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
+        xs = [_run_layer(branch, x, generator)
+              for branch, x in zip(self.branches, xs)]
         if self.fuse_layers is None:
             return xs
         fused = []
@@ -246,13 +319,13 @@ class HighResolutionNet(nn.Module):
                   generator: Optional[torch.Generator]) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
-        xs = [self.layer1(x)]
+        xs = [_run_layer(self.layer1, x, generator)]
         for n, transition in ((2, self.transition1), (3, self.transition2),
                               (4, self.transition3)):
             xs = [xs[i] if t is None else t(xs[min(i, len(xs) - 1)])
                   for i, t in enumerate(transition)]
             for module in getattr(self, f"stage{n}"):
-                xs = module(xs)
+                xs = module(xs, generator)
         if self.dropout_final:
             xs = [dropout_final(t, generator) for t in xs]
         size0 = xs[0].shape[2:]
@@ -262,6 +335,20 @@ class HighResolutionNet(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 mean_only: bool = False):
+        if not self.training:
+            return self._forward(x, generator, mean_only)
+        pending = []
+        token = _PENDING.set(pending)
+        try:
+            out = self._forward(x, generator, mean_only)
+        finally:
+            _PENDING.reset(token)
+        update_running_stats(pending)
+        return out
+
+    def _forward(self, x: torch.Tensor,
+                 generator: Optional[torch.Generator],
+                 mean_only: bool):
         x_size = x.shape[2:]
         features = self._features(x, generator)
         logits = self.last_layer(features)
@@ -283,10 +370,12 @@ class HighResolutionNet(nn.Module):
 def dropout_final(x: torch.Tensor,
                   generator: Optional[torch.Generator]) -> torch.Tensor:
     """p = 0.5 dropout whose keep mask comes from ``generator``: a kept
-    value is doubled, a dropped one is 0 (flax ``nn.Dropout``)."""
+    value is doubled, a dropped one is 0 (flax ``nn.Dropout``). Every
+    dropout of the HRNet goes through here, in forward order: the live
+    branch dropouts of a training pass, then DROPOUT_FINAL's four."""
     if generator is None:
-        raise ValueError("a DROPOUT_FINAL HRNet draws its masks on every "
-                         "pass: forward needs a generator")
+        raise ValueError("this HRNet draws dropout masks on this pass: "
+                         "forward needs a generator")
     keep = torch.rand(x.shape, generator=generator, device=x.device,
                       dtype=torch.float32) >= DROPOUT_FINAL_RATE
     return torch.where(keep, x / (1.0 - DROPOUT_FINAL_RATE),

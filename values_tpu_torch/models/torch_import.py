@@ -7,7 +7,8 @@ Counterpart of ``values_tpu/models/torch_import.py`` (``strip_model_prefix``
 :48, ``unet3d_params_to_torch`` :173-245, ``export_reference_checkpoint``
 :248, ``load_reference_checkpoint`` :258-274) and of
 ``values_tpu/models/ensemble_unet3d.py::group_member_variables`` (:187-230);
-:func:`hrnet_params_to_torch` inverts ``hrnet_params_from_torch`` (:105-147).
+:func:`hrnet_params_to_torch` inverts ``hrnet_params_from_torch`` (:105-147),
+which the port has too, with ``merge_pretrained_hrnet`` (:150-170).
 The port keeps its own copies: it imports nothing of the JAX package.
 
 Layouts:
@@ -185,6 +186,69 @@ def hrnet_params_to_torch(variables: Mapping[str, Any],
         raise KeyError(f"HRNet variables hold leaves the model lacks: "
                        f"{unused[:5]}")
     return state
+
+
+def hrnet_params_from_torch(state_dict: Mapping[str, Any],
+                            dtype: Any = np.float32) -> Dict[str, Any]:
+    """An HRNet state_dict (the port's module, the reference's, or the
+    public ImageNet weights after the reference's key remap at
+    hrnet_module.py:682-737; ``model.`` prefix optional) -> the flax
+    ``{"params", "batch_stats"}`` variables of numpy arrays (the port's
+    copy of ``values_tpu/models/torch_import.py::hrnet_params_from_torch``,
+    :105-147; the inverse of :func:`hrnet_params_to_torch`): module names
+    are the torch prefixes with '.' -> '_'; conv weight (O, I, kh, kw) ->
+    kernel (kh, kw, I, O); BN weight/bias -> scale/bias, running
+    mean/var -> ``batch_stats`` mean/var; ``num_batches_tracked`` is
+    dropped."""
+    state_dict = strip_model_prefix(state_dict)
+    bn_prefixes = {k[:-len(".running_mean")] for k in state_dict
+                   if k.endswith(".running_mean")}
+    params: Dict[str, Any] = {}
+    batch_stats: Dict[str, Any] = {}
+    bn_leaves = {"weight": (params, "scale"), "bias": (params, "bias"),
+                 "running_mean": (batch_stats, "mean"),
+                 "running_var": (batch_stats, "var")}
+    for key, tensor in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        prefix, leaf = key.rsplit(".", 1)
+        name = prefix.replace(".", "_")
+        arr = (tensor.detach().cpu().numpy() if hasattr(tensor, "detach")
+               else np.asarray(tensor)).astype(dtype)
+        if prefix in bn_prefixes:
+            tree, flax_leaf = bn_leaves[leaf]
+            tree.setdefault(name, {})[flax_leaf] = arr
+        elif leaf == "weight":
+            if arr.ndim != 4:
+                raise ValueError(f"Unexpected weight rank for {key}")
+            params.setdefault(name, {})["kernel"] = np.ascontiguousarray(
+                np.transpose(arr, (2, 3, 1, 0)))
+        elif leaf == "bias":
+            params.setdefault(name, {})["bias"] = arr
+        else:
+            raise KeyError(f"Unrecognized HRNet state_dict key: {key}")
+    return {"params": params, "batch_stats": batch_stats}
+
+
+def merge_pretrained_hrnet(variables: Dict[str, Any],
+                           pretrained: Dict[str, Any]) -> Dict[str, Any]:
+    """Merge converted pretrained weights into initialised variables with
+    the reference's filtering (hrnet_module.py:703-737; the JAX package's
+    :150-170): only leaves the model has, of the same shape, are taken;
+    everything else stays initialised. Returns a new tree."""
+    merged = {c: {m: dict(leaves) for m, leaves in tree.items()}
+              for c, tree in variables.items()}
+    for collection in ("params", "batch_stats"):
+        tgt = merged.get(collection, {})
+        for module, leaves in pretrained.get(collection, {}).items():
+            if module not in tgt:
+                continue
+            for leaf, value in leaves.items():
+                if leaf in tgt[module] and (
+                        tuple(np.shape(tgt[module][leaf]))
+                        == tuple(np.shape(value))):
+                    tgt[module][leaf] = value
+    return merged
 
 
 def export_reference_checkpoint(path: str, variables: Mapping[str, Any],

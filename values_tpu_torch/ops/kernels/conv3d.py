@@ -44,7 +44,9 @@ raises, and nothing falls back after a failed build or launch:
   - ``tile16``, ``tile8``, ``tile4`` (named after the tile's W extent):
     one tile per block, the weight streamed through a ring of 64-row
     chunks. 2x8x16 voxels where W >= 16 and H >= 8, 4x8x8 where W >= 8
-    and H >= 8, 4x4x4 otherwise (a whole 4^3 volume per tile).
+    and H >= 8, 4x4x4 otherwise (a whole 4^3 volume per tile); the next
+    smaller tile where the haloed input of that one does not fit shared
+    memory (Cin 256 at 8^3).
 
 The contract, per group g of ``groups`` (``conv3d_fused_reference``):
 
@@ -59,6 +61,13 @@ The contract, per group g of ``groups`` (``conv3d_fused_reference``):
 
 :func:`conv3d_fused` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors; it never falls back from one to the other.
+A bfloat16 shape the regimes do not take as it is runs zero-padded
+(:func:`padded_channels`, :func:`run_padded`): Cin1 and Cin2 each to
+8·2^k, Cout to a multiple of 8, with zero weights, bias and prologue
+maps in the padded channels, the output and its statistics sliced back.
+That is a shape transform around the same launch; :func:`plan` stays
+strict, and a shape no regime takes after padding still raises. The dx
+entry pads likewise (:func:`dx_padded_channels`, :func:`run_padded_dx`).
 
 K1b, the training form (:func:`conv3d_fused_train`, the autograd
 :class:`Conv3dFusedFn`), is the port of the custom VJP around the TPU
@@ -239,19 +248,23 @@ def _plan(dtype, d, h, w, groups, cin1, cin2, cout, dx):
                          "power of two)" + (" for dx" if dx else ""))
     else:
         bn = next(n for n in _BLOCK_N if cout % n == 0)
-        if w >= 16 and h >= 8:
+        found = None
+        if w >= 16 and h >= 8 and bn <= 16:
             q1 = cin1 // 8
-            found = None
-            if bn <= 16 and q1 <= 8 and not q1 & (q1 - 1) \
-                    and cin2 in (0, cin1):
+            if q1 <= 8 and not q1 & (q1 - 1) and cin2 in (0, cin1):
                 found = _shallow_plan(bn, cin1, cin2, dx)
-            if found is None or found.smem_bytes > SHALLOW_SMEM:
-                found = _mma_plan("tile16", (2, 8, 16), bn, cin, 2, dx)
-        elif w >= 8 and h >= 8:
-            found = _mma_plan("tile8", (4, 8, 8), bn, cin, 2, dx)
-        else:
-            found = _mma_plan("tile4", (4, 4, 4), 64 if cout % 64 == 0
-                              else bn, cin, 2, dx)
+            if found is not None and found.smem_bytes > SHALLOW_SMEM:
+                found = None
+        if found is None:
+            # the volume's tile, or a smaller one where its haloed input
+            # does not fit shared memory (wide Cin, as padding makes)
+            names = ((["tile16"] if w >= 16 and h >= 8 else [])
+                     + (["tile8"] if w >= 8 and h >= 8 else []) + ["tile4"])
+            plans = [_mma_plan(name, _TILES[name],
+                               64 if name == "tile4" and cout % 64 == 0
+                               else bn, cin, 2, dx) for name in names]
+            found = next((f for f in plans if f.smem_bytes <= SMEM_LIMIT),
+                         plans[0])
     if found.smem_bytes > SMEM_LIMIT:
         raise ValueError(f"no K1 regime fits Cin {cin}, Cout {cout}, G "
                          f"{groups} in shared memory ({found})")
@@ -340,6 +353,126 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _pow2_multiple_of_8(c: int) -> int:
+    return 8 << max(0, (-(-c // 8) - 1).bit_length())
+
+
+def padded_channels(dtype: torch.dtype, cin1: int, cin2: int, cout: int
+                    ) -> Tuple[int, int, int]:
+    """The channel counts a K1 launch runs the shape at: in bfloat16 Cin1
+    and Cin2 (each on its own, 0 staying 0) zero-padded to 8·2^k and Cout
+    to a multiple of 8, except one input channel and no x2 (the ``cin1``
+    regime); float32 shapes as they are. :func:`plan` then takes the
+    padded shape or raises."""
+    if dtype != torch.bfloat16:
+        return cin1, cin2, cout
+    cout_p = _round_up(cout, 8)
+    if cin1 == 1 and cin2 == 0:
+        return 1, 0, cout_p
+    return (_pow2_multiple_of_8(cin1),
+            _pow2_multiple_of_8(cin2) if cin2 else 0, cout_p)
+
+
+def dx_padded_channels(dtype: torch.dtype, cout: int, cin: int
+                       ) -> Tuple[int, int]:
+    """The (forward Cout, forward Cin) a group that a launch of K1b's dx
+    entry runs at: in bfloat16 the first (dx's input channels) padded to
+    8·2^k and the second (dx's output) to a multiple of 8."""
+    if dtype != torch.bfloat16:
+        return cout, cin
+    return _pow2_multiple_of_8(cout), _round_up(cin, 8)
+
+
+def _pad_last(t: Optional[torch.Tensor], groups: int, size: int):
+    """Zero-pad each of ``groups`` channel blocks of the last axis to
+    ``size`` channels."""
+    if t is None:
+        return None
+    lead, c = t.shape[:-1], t.shape[-1] // groups
+    if c == size:
+        return t
+    return F.pad(t.reshape(*lead, groups, c), (0, size - c)).reshape(
+        *lead, groups * size).contiguous()
+
+
+def _unpad_last(t: Optional[torch.Tensor], groups: int, size: int):
+    """The first ``size`` channels of each of ``groups`` blocks."""
+    if t is None or t.shape[-1] == groups * size:
+        return t
+    lead = t.shape[:-1]
+    return t.reshape(*lead, groups, -1)[..., :size].reshape(
+        *lead, groups * size).contiguous()
+
+
+def _pad_weight(weight: torch.Tensor, groups: int, rows, rows_p,
+                cols_p: int) -> torch.Tensor:
+    """A (3, 3, 3, sum(rows), G*cols) weight with each block of ``rows``
+    input rows zero-padded to its ``rows_p`` and each group's columns to
+    ``cols_p``."""
+    blocks, start = [], 0
+    for r, rp in zip(rows, rows_p):
+        block = weight[:, :, :, start:start + r]
+        blocks.append(F.pad(block, (0, 0, 0, rp - r)) if rp > r else block)
+        start += r
+    return _pad_last(torch.cat(blocks, dim=3), groups, cols_p).contiguous()
+
+
+def run_padded(conv, x: torch.Tensor, weight: torch.Tensor,
+               bias: Optional[torch.Tensor], groups: int,
+               channels: Tuple[int, int, int], *,
+               x2: Optional[torch.Tensor] = None,
+               prologue: Optional[Prologue] = None,
+               activation: str = "none", emit_stats: bool = False):
+    """``conv`` (K1, or its plain version in the tests) on operands
+    zero-padded to ``channels`` = (Cin1, Cin2, Cout) a group, its output
+    and statistics sliced back: padded input channels meet zero weight
+    rows and a prologue scale and shift of 0 (so they stay 0), padded
+    output channels have zero weights and bias (their output and sums
+    are 0)."""
+    cin1, cout = x.shape[-1] // groups, weight.shape[-1] // groups
+    cin2 = 0 if x2 is None else x2.shape[-1] // groups
+    cin1_p, cin2_p, cout_p = channels
+    w = _pad_weight(weight, groups, (cin1, cin2), (cin1_p, cin2_p), cout_p)
+    if prologue is not None:
+        def pad_map(m):
+            m = m.reshape(m.shape[0], groups, cin1 + cin2)
+            parts = [F.pad(m[..., :cin1], (0, cin1_p - cin1)),
+                     F.pad(m[..., cin1:], (0, cin2_p - cin2))]
+            return torch.cat(parts, -1).reshape(m.shape[0], -1).contiguous()
+        prologue = tuple(pad_map(m) for m in prologue)
+    res = conv(_pad_last(x, groups, cin1_p), w,
+               _pad_last(bias, groups, cout_p), groups,
+               x2=_pad_last(x2, groups, cin2_p), prologue=prologue,
+               activation=activation, emit_stats=emit_stats)
+    if not emit_stats:
+        return _unpad_last(res, groups, cout)
+    out, (s1, s2) = res
+    return (_unpad_last(out, groups, cout),
+            (_unpad_last(s1, groups, cout), _unpad_last(s2, groups, cout)))
+
+
+def run_padded_dx(dx_entry, dy: torch.Tensor, weight: torch.Tensor,
+                  groups: int, channels: Tuple[int, int], *,
+                  y: Optional[torch.Tensor] = None, fold: str = "none",
+                  ds1: Optional[torch.Tensor] = None,
+                  ds2: Optional[torch.Tensor] = None,
+                  cotangent: bool = False, bias_grad: bool = False):
+    """``dx_entry`` (K1b's dx entry, or its plain version) on operands
+    zero-padded to ``channels`` = (the forward's Cout, its Cin) a group:
+    dy, y, ds1 and ds2 to the first, the weight's rows to the second and
+    its columns to the first. dx, the cotangent and db are sliced back."""
+    cout_f, cin_f = weight.shape[-1] // groups, weight.shape[3]
+    cout_p, cin_p = channels
+    w = _pad_weight(weight, groups, (cin_f,), (cin_p,), cout_p)
+    dx, g, db = dx_entry(
+        _pad_last(dy, groups, cout_p), w, groups,
+        y=_pad_last(y, groups, cout_p), fold=fold,
+        ds1=_pad_last(ds1, groups, cout_p), ds2=_pad_last(ds2, groups, cout_p),
+        cotangent=cotangent, bias_grad=bias_grad)
+    return (_unpad_last(dx, groups, cin_f), _unpad_last(g, groups, cout_f),
+            _unpad_last(db, groups, cout_f))
+
+
 def conv3d_fused(x: torch.Tensor, weight: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, groups: int = 1, *,
                  x2: Optional[torch.Tensor] = None,
@@ -385,6 +518,11 @@ def conv3d_fused(x: torch.Tensor, weight: torch.Tensor,
         maps = prologue
         for name, m in zip(("scale", "shift", "slope"), maps):
             _check(m, name, (b, groups * cin), torch.float32, x.device)
+    channels = padded_channels(x.dtype, cin1, cin2, cout)
+    if channels != (cin1, cin2, cout):
+        return run_padded(conv3d_fused, x, weight, bias, groups, channels,
+                          x2=x2, prologue=prologue, activation=activation,
+                          emit_stats=emit_stats)
     launch = plan(x.dtype, d, h, w, groups, cin1, cin2, cout)
     if launch.regime != "f32":  # 16-byte copies of x, x2 and the weight
         for name, t in (("x", x), ("x2", x2), ("weight", weight)):
@@ -524,6 +662,11 @@ def conv3d_fused_dx(dy: torch.Tensor, weight: torch.Tensor, groups: int = 1,
     for name, m in (("ds1", ds1), ("ds2", ds2)):
         if fold == "stats" and m is not None:
             _check(m, name, (b, groups * cin), torch.float32, dy.device)
+    channels = dx_padded_channels(dy.dtype, cin, cout)
+    if channels != (cin, cout):
+        return run_padded_dx(conv3d_fused_dx, dy, weight, groups, channels,
+                             y=y, fold=fold, ds1=ds1, ds2=ds2,
+                             cotangent=cotangent, bias_grad=bias_grad)
     launch = plan_dx(dy.dtype, d, h, w, groups, cin, cout)
     if launch.regime != "f32":  # 16-byte copies of dy, y and the weight
         for name, t in (("dy", dy), ("y", y), ("weight", weight)):

@@ -17,7 +17,9 @@ prefixed keys), whichever of these formats holds it:
   pickle.
 
 The port writes the JAX package's native pickle (:func:`save_checkpoint`):
-the flax-layout parameter tree as numpy, the config, epoch and step. The
+the flax-layout variables as numpy (``{params}``, or an HRNet's
+``{params, batch_stats}``), the config, epoch and step; both packages'
+score and test CLIs read them. The
 torch optimizer's state goes under ``torch_optimizer_state``, not the
 JAX package's ``opt_state``, so a JAX ``fit`` resuming from a port
 checkpoint starts a fresh optax state. Orbax checkpoint directories are a

@@ -5,7 +5,11 @@ uncertainty_modeling/main.py:33-88), on one device: datamodule
 prepare/setup, per-epoch training and validation, scalar logging, the
 learning-rate schedule (polynomial per step, plateau per epoch), and
 self-describing checkpoints under
-``save_dir/<exp_name>/<version>/checkpoints/``. Data-parallel training
+``save_dir/<exp_name>/<version>/checkpoints/``. A config with
+``AUGMENTATIONS`` is the 2D path (JAX :126-135, :190-193): the 2D
+datamodule built with the augmentations, batch size, epochs and seed, the
+HRNet from ``init_state_2d`` on the crop's height and width, and
+checkpoints of its ``{params, batch_stats}``. Data-parallel training
 (``devices``/``gpus`` > 1, ``dcn_granules``) is ROADMAP.md Queue 1's
 ``torch.distributed`` item and raises.
 """
@@ -48,24 +52,34 @@ def _device_batch(batch: Dict, device: torch.device) -> Dict:
 
 
 def _log_val_image(logger, experiment, params, batch, step: int) -> None:
-    """One validation panel (input / ground truth / prediction of the
-    central slice), as the reference's TensorBoard image grids
-    (lightning_experiment.py:332-372). Best effort: a failure warns once
+    """One validation panel (input / ground truth / prediction; of the
+    central slice in 3D), as the reference's TensorBoard image grids
+    (lightning_experiment.py:332-372). A DROPOUT_FINAL HRNet draws its
+    masks from a generator of its own, seeded with the step, so logging
+    leaves the training draws alone. Best effort: a failure warns once
     and never stops training."""
     try:
         data = batch["data"][:1]
-        out = experiment.eval_apply(params, data)
+        generator = torch.Generator(device=data.device).manual_seed(step)
+        out = experiment.eval_apply(params, data, generator)
         if isinstance(out, tuple):
             out = out[0]
+        spatial = tuple(data.shape[1:-1])
         if hasattr(out, "rsample"):  # the SSN's distribution: its mean
-            out = out.mean.reshape((1, experiment.num_classes)
-                                   + tuple(data.shape[1:4])).movedim(1, -1)
-        pred = torch.argmax(out, dim=-1)[0].cpu().numpy()
+            out = out.mean.reshape((1, experiment.num_classes) + spatial)
+        elif not experiment.is_2d:
+            out = out.movedim(-1, 1)
+        pred = torch.argmax(out, dim=1)[0].cpu().numpy()
         img = data[0].cpu().numpy()
-        mid = img.shape[0] // 2
-        img2d, pred2d = img[mid, ..., 0], pred[mid]
-        seg2d = (batch["seg"][0][mid].cpu().numpy() if "seg" in batch
-                 else np.zeros_like(pred2d))
+        seg = batch["seg"][0].cpu().numpy() if "seg" in batch else None
+        if experiment.is_2d:
+            img2d, pred2d = img.mean(axis=-1), pred
+            seg2d = seg if seg is not None and seg.ndim == 2 else (
+                seg[0] if seg is not None else np.zeros_like(pred2d))
+        else:
+            mid = img.shape[0] // 2
+            img2d, pred2d = img[mid, ..., 0], pred[mid]
+            seg2d = seg[mid] if seg is not None else np.zeros_like(pred2d)
 
         def norm(x):
             x = x.astype(np.float32)
@@ -81,6 +95,27 @@ def _log_val_image(logger, experiment, params, batch, step: int) -> None:
             _log_val_image._warned = True
             warnings.warn(f"validation image logging failed: {exc!r} "
                           "(further failures suppressed)")
+
+
+def build_datamodule(cfg: Config):
+    """The config's datamodule, not yet set up: the 2D one (a config with
+    ``AUGMENTATIONS``) given the augmentations, batch size, epochs and
+    seed, as the JAX ``fit`` builds it (:126-135); a 3D one given the
+    data directory and batch size."""
+    if "AUGMENTATIONS" not in cfg:
+        return instantiate(
+            cfg.datamodule, data_input_dir=cfg.get("data_input_dir"),
+            batch_size=cfg.get("batch_size",
+                               cfg.datamodule.get("batch_size", 8)))
+    augmentations = cfg["AUGMENTATIONS"]
+    if hasattr(augmentations, "to_container"):
+        augmentations = augmentations.to_container()
+    return instantiate(
+        dict(cfg.datamodule.to_container(), _recursive_=False),
+        data_input_dir=cfg.get("data_input_dir"),
+        augmentations=augmentations,
+        batch_size=cfg.get("batch_size", cfg.datamodule.get("batch_size", 6)),
+        max_epochs=cfg.get("max_epochs", 1), seed=int(cfg.get("seed", 123)))
 
 
 def fit(cfg: Config, max_steps_override: Optional[int] = None,
@@ -99,9 +134,6 @@ def fit(cfg: Config, max_steps_override: Optional[int] = None,
         cfg["save_dir"] = os.environ["EXPERIMENT_LOCATION"]
     if "LSB_JOBID" in os.environ and not cfg.get("version"):
         cfg["version"] = os.environ["LSB_JOBID"]
-    if "AUGMENTATIONS" in cfg:
-        raise NotImplementedError("2D training is not ported yet "
-                                  "(ROADMAP.md, Queue 1: '2D')")
     n_devices = resolve_device_count(cfg.get("devices", cfg.get("gpus")))
     if n_devices > 1 or int(cfg.get("dcn_granules", 0) or 0) > 1:
         raise NotImplementedError(
@@ -118,10 +150,8 @@ def fit(cfg: Config, max_steps_override: Optional[int] = None,
     if not cfg.get("version"):
         cfg["version"] = logger.version
 
-    datamodule = instantiate(
-        cfg.datamodule, data_input_dir=cfg.get("data_input_dir"),
-        batch_size=cfg.get("batch_size",
-                           cfg.datamodule.get("batch_size", 8)))
+    is_2d = "AUGMENTATIONS" in cfg
+    datamodule = build_datamodule(cfg)
     datamodule.prepare_data()
     datamodule.setup()
 
@@ -131,8 +161,14 @@ def fit(cfg: Config, max_steps_override: Optional[int] = None,
         save_top_k=int(cfg.get("save_top_k", 0) or 0),
         every_n_epochs=int(cfg.get("checkpoint_every_n_epochs", 0) or 0),
         monitor="val_loss", fmt=str(cfg.get("checkpoint_format", "pickle")))
-    state = experiment.init_state(
-        seed, int(cfg.select("datamodule.patch_size", 64)))
+    if is_2d:
+        state = experiment.init_state_2d(
+            seed, int(cfg.select("AUGMENTATIONS.height")),
+            int(cfg.select("AUGMENTATIONS.width")),
+            int(cfg.select("MODEL.INPUT_CHANNELS", 3)))
+    else:
+        state = experiment.init_state(
+            seed, int(cfg.select("datamodule.patch_size", 64)))
     start_epoch = global_step = 0
     if resume_from:
         payload = load_checkpoint(resume_from)
@@ -160,7 +196,8 @@ def fit(cfg: Config, max_steps_override: Optional[int] = None,
 
     t_start = time.time()
     for epoch in range(start_epoch, max_epochs):
-        # the SSN pretrains its mean for the first pretrain_epochs
+        # the SSN (3D and 2D) pretrains its mean for the first
+        # pretrain_epochs
         pretrain = experiment.is_ssn and epoch < experiment.pretrain_epochs
         epoch_losses = []
         for batch in train_loader:
@@ -198,7 +235,7 @@ def fit(cfg: Config, max_steps_override: Optional[int] = None,
 
         if schedule.kind == "plateau":
             optim.set_learning_rate(state.optimizer, plateau.step(val_loss))
-        retention.save({"params": state.params}, cfg.to_container(),
+        retention.save(experiment.variables(state), cfg.to_container(),
                        epoch=epoch, global_step=global_step,
                        torch_optimizer_state=state.optimizer.state_dict(),
                        monitored=val_loss)

@@ -9,7 +9,13 @@ uncertainty_modeling/main.py:33-88), with the same arguments and
 
 Environment overrides as in the reference: DATASET_LOCATION,
 EXPERIMENT_LOCATION, LSB_JOBID -> version. Without ``--device cpu`` it
-needs a CUDA card.
+needs a CUDA card. The 2D configs train the HRNet-W48 on the GTA tree
+that ``python -m values_tpu_torch.data.gta_preprocess`` writes:
+``--config-name gta_softmax_config`` (SGD, polynomial learning rate),
+``gta_ssn_config`` (RMSprop, ``pretrain_epochs`` mean-only epochs first),
+and ``gta_softmax_config model=hrnet_config_dropout_final`` (MC dropout
+on the final branches). HRNet training starts from the random
+initialisation unless ``MODEL.PRETRAINED`` names a local weights file.
 
 Precision on the card: K1 and K1b's dx (the hand-written kernels) run
 float32 as 3xTF32, float32's accuracy. The float32 convolution outside
@@ -19,7 +25,8 @@ reference's PyTorch code did; matrix products (the k2s2 transposed convs,
 the 1x1x1 head) stay float32 (``torch.backends.cuda.matmul.allow_tf32``
 defaults off). ``torch.backends.cudnn.allow_tf32 = False`` gives full
 float32, where cuDNN's weight gradient becomes most of the step's time
-(PERF.md, section 5).
+(PERF.md, section 5). The HRNet's 2D convolutions are cuDNN's, all of
+them under that same TF32 default.
 """
 from __future__ import annotations
 

@@ -9,10 +9,16 @@ build torch's own optimizers under the JAX module's names:
 
 - :func:`adam`, :func:`sgd`, :func:`rmsprop` return a builder
   ``params -> torch.optim.Optimizer`` (the configs name no parameters;
-  ``params`` is accepted and ignored, as in the JAX module);
+  ``params`` is accepted and ignored, as in the JAX module). torch's
+  rules are the JAX module's: Adam and SGD add the weight decay to the
+  gradient first; SGD's momentum buffer starts at that gradient (optax's
+  ``trace``), Nesterov adds ``momentum * buffer`` to it; RMSprop divides
+  by ``sqrt(n) + eps``, eps outside the root;
 - :class:`LRSchedule`, :func:`polynomial_lr`, :func:`reduce_lr_on_plateau`
   and :class:`PlateauTracker` are copies: the host applies the learning
-  rate between steps through :func:`set_learning_rate`;
+  rate between steps through :func:`set_learning_rate`, the polynomial
+  one before every step in its closed form ``base (1 - step / total) **
+  power`` (not torch's recursive ``PolynomialLR``);
 - :func:`clip_grads_by_global_norm` is ``clip_grad_norm_``'s rule.
 """
 from __future__ import annotations
