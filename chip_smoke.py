@@ -21,10 +21,14 @@ Phases, each of which raises on failure:
    96+96; Cout 6, 12, 96);
 4. hold K2 against its plain version: the probability form on a stack
    with exact zeros (contiguous and channels-last), the logits form in
-   float32 and bfloat16;
+   float32 and bfloat16; and its streaming regime (more than 16 classes,
+   or more than 454 bytes of samples a voxel) at S 5, C 24 (bf16
+   logits) and S 80, C 2 (f32 probabilities);
 5. hold K3 against its plain version in both bit modes (the bits
    exactly; the sums within tolerance in the sigma form, the log_var
-   form and in bfloat16; sigma = 0 exactly softmax);
+   form and in bfloat16; sigma = 0 exactly softmax) at 2, 3 and 12
+   classes (the last its shared-memory kernel), and that kernel at 5
+   members, 12 classes, 10 samples over 32 volumes of 64^3;
 5b. hold K1b (K1's autograd Function, its dx one launch of the dx
    entry) against autograd through K1's plain version: dx, dW and db,
    f32 and bf16, with statistics and with the leaky and ReLU epilogues,
@@ -118,7 +122,7 @@ Phases, each of which raises on failure:
    ood moved into al_improvement's layout) and al_improvement; every
    run's launches counted, the steps timed; its launches join the
    kernels line;
-8m. then the 2D path (HRNet-W48 through ``test_2d``) and, last,
+8m. then the 2D path (HRNet-W48 through ``test_2d``) and
    GTA's training half (``gta_training_path``): raw GTA5 (1914x1052)
    and Cityscapes (2048x1024) PNGs written by the script with every PNG
    filter and one palette file, preprocessed and split through the
@@ -131,10 +135,24 @@ Phases, each of which raises on failure:
    against off; ``test_2d`` on the trained checkpoints (5 families, 4
    splits) and ``eval_config_gta``'s six tasks, each timed; no launch
    of K1-K3;
+8n. last, "data parallel": 2 ranks spawned on card 0 over gloo (NCCL
+   refuses two ranks on one card), each running a data-parallel
+   ``softmax_config`` step at f32 and bf16 (published widths, a global
+   batch of 8, 4 rows a rank), the sharded deterministic and aleatoric
+   scorers (5 members, 32 volumes, 16 a rank) and the engine's window
+   (5 members) and TTA sample (one member's 16 variants) strategies on
+   a 128^3 volume; each rank's K1, K1b, K2 and K3 launches counted (each
+   must launch); each result held against rank 0's single-rank run of
+   the same inputs (the step: loss and every averaged gradient); then a
+   1-rank NCCL world in the script's process: the data-parallel step,
+   whose bucket and loss go through NCCL's all-reduce, against the plain
+   one, and that all-reduce call alone (one card: no bytes between
+   cards);
 9. time each kernel at its path's shape beside its bound, its plain
    version and a library yardstick (K3: the stock-torch sampling loop,
-   and its SFU floor, computed at the card's maximum SM clock; K2: both
-   forms; K1b: the dx entry in bf16 and f32 against cuDNN's input
+   and its SFU floor, computed at the card's maximum SM clock, and its
+   shared-memory kernel at 12 classes; K2: both forms, and its streaming
+   regime at the two shapes of phase 4; K1b: the dx entry in bf16 and f32 against cuDNN's input
    gradient after the same fold, device time under the profiler and
    host clock), time and profile a training step (17 launches of the dx
    entry, no weight flip), time K1's f32 regime (tf32x3) at the test_3d
@@ -653,8 +671,9 @@ def check_k2():
     channels-last view, exact zeros), and the logits form in float32 and
     bfloat16 (voxel-major, and sample-major as the scorer hands it over),
     each against its plain version; every layout but sample-major goes
-    through the wrapper's copy (at N = 100,003 into padded rows). Returns
-    the worst error."""
+    through the wrapper's copy (at N = 100,003 into padded rows); then the
+    streaming regime at K2_STREAM_SHAPES (checking that it launched).
+    Returns the worst error."""
     import torch
     from values_tpu_torch.ops.kernels.entropy import (
         fused_entropy, fused_entropy_reference)
@@ -691,7 +710,48 @@ def check_k2():
         worst = max(worst, *errs.values())
         log(f"K2 S={s} C={c} N={n}: max_abs_err " + ", ".join(
             f"{k} {v:.3e}" for k, v in errs.items()))
+    for name, (x, is_logits) in k2_stream_cases(gen).items():
+        before = dict(fused_entropy.regime_launches)
+        got = fused_entropy(x, logits=is_logits)
+        want = fused_entropy_reference(x, logits=is_logits)
+        torch.cuda.synchronize()
+        if fused_entropy.regime_launches["stream"] != before["stream"] + 1:
+            raise AssertionError(f"K2 {name}: the stream regime did not "
+                                 "launch")
+        err = max(float((got[k].float() - want[k].float()).abs().max())
+                  for k in want)
+        if not err <= 1e-5:
+            raise AssertionError(f"K2 {name}: max_abs_err {err:.3e}")
+        worst = max(worst, err)
+        log(f"K2 stream regime, {name}: max_abs_err {err:.3e}")
+        del got, want
     return worst
+
+
+# Part A's shapes for K2's streaming regime: more than 16 classes (the
+# GTA path's 24, S 5 over 6 HRNet images at 256 x 478), and more than 454
+# bytes of samples a voxel (80 TTA-sized samples of 2 classes over twelve
+# 64^3 windows)
+K2_STREAM_SHAPES = {"S=5 C=24 N=6x256x478 bf16 logits":
+                    (5, 24, 6 * 256 * 478, "bfloat16", True),
+                    "S=80 C=2 N=12x64^3 f32 probabilities":
+                    (80, 2, 12 * 64 ** 3, "float32", False)}
+
+
+def k2_stream_cases(gen) -> dict:
+    """K2's streaming-regime inputs at K2_STREAM_SHAPES: the logits
+    sample-major as a grouped head leaves them, the probabilities as a
+    softmax stack with exact zeros."""
+    import torch
+    cases = {}
+    for name, (s, c, n, dtype, is_logits) in K2_STREAM_SHAPES.items():
+        if is_logits:
+            x = (torch.randn((s, n, c), generator=gen, device="cuda") * 3
+                 ).to(getattr(torch, dtype)).permute(0, 2, 1)
+        else:
+            x = entropy_stack(gen, s, c, n).to(getattr(torch, dtype))
+        cases[name] = (x, is_logits)
+    return cases
 
 
 # -- K3 against its plain version ---------------------------------------------
@@ -710,9 +770,13 @@ def k3_head(gen, n, m, c):
 
 
 def check_k3():
-    """Both bit modes at M=5, n=3, C=2 (the two-class kernel) and C=3
-    (the general one): the bits exactly, then the sums in the sigma form,
-    the log_var form and in bfloat16 (log_var), and the sigma = 0 case.
+    """Both bit modes at M=5, n=3, C=2 (the two-class kernel), C=3 (the
+    general one) and C=12, 24 and 100 (the shared-memory one, at 48 KB a
+    block, above 48 KB, and with the block halved): the regime each
+    launches, the bits exactly, then
+    the sums in the sigma form, the log_var form and in bfloat16
+    (log_var), and the sigma = 0 case; then the shared-memory kernel at
+    Part A's shape (K3_WIDE_N voxels, 10 samples, bf16 log_var).
     Tolerances: sums atol 1e-4, rtol 1e-5 (the kernel's float32 SFU exp, log, sqrt and reciprocals and its FMAs differ from
     PyTorch's by ulps; each sum adds M*n = 15 terms of magnitude at most
     1, or log C); sigma = 0: atol 1e-5 against n * sum_m softmax(mu).
@@ -726,11 +790,24 @@ def check_k3():
     cases = (("philox", CLASSES, 100_003, None, None),
              ("counter", CLASSES, 5 * 8 * 7 * 16, (8, 7, 16), 4),
              ("philox", 3, 50_001, None, None),
-             ("counter", 3, 3 * 8 * 8 * 16, (8, 8, 16), 4))
+             ("counter", 3, 3 * 8 * 8 * 16, (8, 8, 16), 4),
+             # more than 8 classes: the shared-memory regime, at 12 (48 KB
+             # a block), GTA's 24 (96 KB: the opt-in above 48 KB) and 100
+             # (the block halved to 128 threads to fit)
+             *((bits, c, n, spatial, rows) for c in K3_SHARED_CS
+               for bits, n, spatial, rows in (
+                   ("philox", 50_001, None, None),
+                   ("counter", 3 * 8 * 8 * 16, (8, 8, 16), 4))))
+    want_blocks = {K3_WIDE_C: 256, 24: 256, 100: 128}
+    for c, block in want_blocks.items():
+        if sampling.plan(c) != ("shared", block):
+            raise AssertionError(f"K3 plan at C={c}: {sampling.plan(c)}, "
+                                 f"not ('shared', {block})")
     worst = 0.0
     for bits, c, n, spatial, rows in cases:
         kw = dict(n_samples=n_s, bits=bits, spatial=spatial,
                   counter_rows=rows)
+        regime = sampling.plan(c)[0]
         got_bits = sampling.sample_bits(n, m, c, seed, device="cuda", **kw)
         want_bits = sampling.sample_bits_reference(n, m, c, seed,
                                                    device="cuda", **kw)
@@ -745,8 +822,13 @@ def check_k3():
                                   {"log_var": log_var.to(torch.bfloat16)})}
         errs = {}
         for form, (mu_t, sigma_t, extra) in forms.items():
+            before = sampling.sampled_softmax_stats.regime_launches[regime]
             got = sampling.sampled_softmax_stats(mu_t, sigma_t, seed, **kw,
                                                  **extra)
+            if sampling.sampled_softmax_stats.regime_launches[regime] != \
+                    before + 1:
+                raise AssertionError(f"K3 {bits} {form} at C={c}: the "
+                                     f"{regime} regime did not launch")
             want = sampling.sampled_softmax_stats_reference(
                 mu_t, sigma_t, seed, **kw, **extra)
             for name, g, w in zip(("sum_p", "sum_ent"), got, want):
@@ -762,11 +844,39 @@ def check_k3():
         err0 = float((zero_p - soft).abs().max())
         if not err0 <= 1e-5:
             raise AssertionError(f"K3 {bits} sigma=0: max_abs_err {err0:.3e}")
-        log(f"K3 {bits:7s} M={m} C={c} n={n_s} N={n}: bits equal "
+        log(f"K3 {bits:7s} M={m} C={c} n={n_s} N={n} {regime} "
+            f"(block {sampling.plan(c)[1]}): bits equal "
             f"({got_bits.numel()} words); max_abs_err " + ", ".join(
                 f"{k} {v:.3e}" for k, v in errs.items())
             + f"; sigma=0 {err0:.3e} (strided views)")
+    # Part A's shape for the shared-memory regime, as the scorer hands a
+    # head over (bf16 mu and log_var views), against its plain version
+    mu, _, log_var = k3_head(gen, K3_WIDE_N, N_MEMBERS, K3_WIDE_C)
+    kw = dict(n_samples=N_ALEATORIC, log_var=log_var.to(torch.bfloat16))
+    before = dict(sampling.sampled_softmax_stats.regime_launches)
+    got = sampling.sampled_softmax_stats(mu.to(torch.bfloat16), None, seed,
+                                         **kw)
+    if sampling.sampled_softmax_stats.regime_launches["shared"] != \
+            before["shared"] + 1:
+        raise AssertionError("K3 at C=12: the shared regime did not launch")
+    want = sampling.sampled_softmax_stats_reference(mu.to(torch.bfloat16),
+                                                    None, seed, **kw)
+    for name, g, w in zip(("sum_p", "sum_ent"), got, want):
+        err = (g - w).abs()
+        if bool((err > 1e-4 + 1e-5 * w.abs()).any()):
+            raise AssertionError(f"K3 C={K3_WIDE_C} at the path's shape "
+                                 f"{name}: max_abs_err {float(err.max()):.3e}")
+        worst = max(worst, float(err.max()))
+        log(f"K3 shared regime M={N_MEMBERS} C={K3_WIDE_C} n={N_ALEATORIC} "
+            f"N={K3_WIDE_N} bf16 log_var: {name} max_abs_err "
+            f"{float(err.max()):.3e}")
     return worst
+
+
+# Part A's shape for K3's shared-memory regime: 12 classes, 5 members, 10
+# samples over 32 volumes of 64^3
+K3_WIDE_C, K3_WIDE_N = 12, 32 * 64 ** 3
+K3_SHARED_CS = (K3_WIDE_C, 24, 100)   # the shared regime's checked counts
 
 
 # -- K1b against autograd through K1's plain version --------------------------
@@ -3728,7 +3838,9 @@ def time_k2(launches, grouped, vols):
                                n * (m * (5 * c - 1) + stats_ops), "float32")
     probs_bound_ms, probs_bound_by = bound(4 * n * m * c + 4 * n * (c + 3),
                                            n * stats_ops, "float32")
+    stream = time_k2_stream()
     return {"name": "fused_entropy", "route": "cuda",
+            "stream_regime": stream,
             "source": "values_tpu_torch/csrc/entropy.cu",
             "replaces": "values_tpu/ops/pallas/entropy.py:28",
             "launches": launches["fused_entropy"], "max_abs_err": err,
@@ -3742,6 +3854,37 @@ def time_k2(launches, grouped, vols):
             "probs_shape": f"probability form, S={m} C={c} N={n} f32 "
                            "channels-last view, the wrapper's copy "
                            "included"}
+
+
+def time_k2_stream() -> dict:
+    """K2's streaming regime at each of K2_STREAM_SHAPES: its time, its
+    plain version's, and its bound (the same byte and operation counts as
+    the tiled regime's, per form)."""
+    import torch
+    from values_tpu_torch.ops.kernels.entropy import (
+        fused_entropy, fused_entropy_reference)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    out = {}
+    for name, (x, is_logits) in k2_stream_cases(gen).items():
+        s, c, n = x.shape
+        got = fused_entropy(x, logits=is_logits)
+        want = fused_entropy_reference(x, logits=is_logits)
+        err = max(float((got[k].float() - want[k].float()).abs().max())
+                  for k in want)
+        del got, want
+        ms = cuda_ms(lambda: fused_entropy(x, logits=is_logits), reps=10)
+        plain_ms = cuda_ms(lambda: fused_entropy_reference(
+            x, logits=is_logits), reps=3, warmup=1)
+        stats_ops = 4 * s * c + 4 * c + 3
+        softmax_ops = s * (5 * c - 1) if is_logits else 0
+        out_bytes = 4 if is_logits else x.element_size()
+        bound_ms, bound_by = bound(
+            x.element_size() * n * s * c + out_bytes * n * (c + 3),
+            n * (softmax_ops + stats_ops), "float32")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err": err}
+        del x
+    return out
 
 
 ACKLAM_CENTRAL, ACKLAM_TAIL = 24, 27   # operations of each branch
@@ -3857,7 +4000,9 @@ def time_k3(launches, grouped, vols):
     clock_mhz = max_sm_clock_mhz()
     mufu_ms = (None if clock_mhz is None
                else sfu / (SFU_PER_CLOCK * clock_mhz * 1e6) * 1e3)
+    del mu32, sigma32
     return {"name": "sampled_softmax_stats", "route": "cuda",
+            "shared_regime": time_k3_wide(),
             "source": "values_tpu_torch/csrc/sampling.cu",
             "replaces": "values_tpu/ops/pallas/sampling.py:135",
             "launches": launches["sampled_softmax_stats"],
@@ -3868,6 +4013,30 @@ def time_k3(launches, grouped, vols):
             "max_sm_clock_mhz": clock_mhz,
             "shape": f"N={n} M={N_MEMBERS} C={c} n={N_ALEATORIC} bf16 "
                      "mu and log_var views of the head, philox"}
+
+
+def time_k3_wide() -> dict:
+    """K3's shared-memory regime at Part A's shape (M 5, C 12, 10
+    samples, K3_WIDE_N voxels; bf16 mu and log_var, Philox): its time,
+    its plain version's and its bound, counted as time_k3 counts."""
+    import torch
+    from values_tpu_torch.ops.kernels.sampling import (
+        sampled_softmax_stats, sampled_softmax_stats_reference)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    mu, _, log_var = k3_head(gen, K3_WIDE_N, N_MEMBERS, K3_WIDE_C)
+    mu, log_var = mu.to(torch.bfloat16), log_var.to(torch.bfloat16)
+    kw = dict(n_samples=N_ALEATORIC, log_var=log_var)
+    ms = cuda_ms(lambda: sampled_softmax_stats(mu, None, 3, **kw), reps=5,
+                 warmup=1)
+    plain_ms = cuda_ms(lambda: sampled_softmax_stats_reference(
+        mu, None, 3, **kw), reps=1, warmup=0)
+    n, m, c = K3_WIDE_N, N_MEMBERS, K3_WIDE_C
+    bound_ms, bound_by = bound(2 * (2 * n * m * c) + 4 * (c * n + n),
+                               k3_operations(n, m, c, N_ALEATORIC, "philox"),
+                               "float32")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "shape": f"N={n} M={m} C={c} n={N_ALEATORIC} bf16, philox"}
 
 
 def time_k1b(launches):
@@ -5603,6 +5772,408 @@ def f2_training_step(card: str) -> dict:
     return {"losses": losses, "rel": rel, "launches": launches}
 
 
+# -- data parallelism over torch.distributed ----------------------------------
+
+DP_RANKS = 2          # ranks that share the one card (gloo: NCCL refuses)
+DP_TIMED_STEPS = 3
+# the phase's device: a CPU rehearsal of the phase sets "cpu" (and small
+# sizes) in every rank
+DP_DEVICE = "cuda"
+
+
+def dp_batch(seed: int):
+    """A global training batch of TRAIN_BATCH 64^3 volumes on the card."""
+    import torch
+    rs = np.random.RandomState(seed)
+    return {"data": torch.from_numpy(rs.rand(TRAIN_BATCH, PATCH, PATCH,
+                                             PATCH, 1).astype(np.float32))
+            .to(DP_DEVICE),
+            "seg": torch.from_numpy(rs.randint(0, CLASSES, size=(
+                TRAIN_BATCH, PATCH, PATCH, PATCH))).to(DP_DEVICE)}
+
+
+def dp_experiment(precision: str):
+    from values_tpu_torch.config import compose
+    from values_tpu_torch.training.experiment import Experiment
+    from values_tpu_torch.training.main import DEFAULT_CONFIG_DIR
+    cfg = compose(DEFAULT_CONFIG_DIR, "softmax_config", [
+        f"model.initial_filter_size={FILTERS}",
+        f"datamodule.patch_size={PATCH}", f"batch_size={TRAIN_BATCH}",
+        f"precision={precision}"])
+    exp = Experiment(cfg, DP_DEVICE)
+    return exp, exp.init_state(int(cfg.seed), PATCH)
+
+
+def dp_grads(exp, state) -> dict:
+    """The gradients a step left on the leaves (the averaged ones after a
+    data-parallel step), on the host."""
+    from values_tpu_torch.training.experiment import tree_leaves
+    names = [f"{m}/{k}" for m in sorted(state.params)
+             for k in sorted(state.params[m].get("conv", state.params[m]))]
+    return {n: leaf.grad.detach().float().cpu()
+            for n, leaf in zip(names, tree_leaves(state.params))}
+
+
+def dp_scorer_inputs(aleatoric: bool):
+    import torch
+    from values_tpu_torch.models.torch_import import group_member_state_dicts
+    grouped = group_member_state_dicts(member_state_dicts(
+        SEED + 11, aleatoric=aleatoric))
+    rs = np.random.RandomState(12)
+    vols = torch.from_numpy(rs.rand(BATCH, PATCH, PATCH, PATCH, 1)
+                            .astype(np.float32)).to(DP_DEVICE)
+    gt = torch.from_numpy((rs.rand(BATCH, PATCH, PATCH, PATCH) > 0.7)
+                          .astype(np.uint8)).to(DP_DEVICE)
+    return grouped, vols, gt
+
+
+def dp_scorers(dtype):
+    import torch
+    from values_tpu_torch.inference.scoring import (make_aleatoric_scorer,
+                                                    make_scorer)
+    det, _ = make_scorer(N_MEMBERS, PATCH, agg_patch=AGG_PATCH,
+                         threshold=THRESHOLD, dtype=dtype, device=DP_DEVICE)
+    ale, _ = make_aleatoric_scorer(N_MEMBERS, PATCH,
+                                   n_aleatoric_samples=N_ALEATORIC,
+                                   agg_patch=AGG_PATCH, threshold=THRESHOLD,
+                                   dtype=dtype, device=DP_DEVICE)
+    return {"deterministic": lambda w, v, g, seed: det(w, v, g),
+            "aleatoric": ale}
+
+
+def dp_engine(kind: str, mesh=None):
+    """The 128^3 engine runs of the phase: "window", 5 members over the
+    data axis; "tta", one member's 16 variants over the sample axis; f32."""
+    import torch
+    from values_tpu_torch.inference.engine import SlidingWindowEngine
+    from values_tpu_torch.models.unet3d import UNet3D
+    from values_tpu_torch.models.torch_import import unet3d_params_from_torch
+    states = member_state_dicts(SEED + 13)
+    trees = [unet3d_params_from_torch(s) for s in states]
+    if kind == "tta":
+        trees = trees[:1]
+    rs = np.random.RandomState(14)
+    vol = rs.rand(BIG, BIG, BIG).astype(np.float32)
+    kw = dict(patch_size=PATCH, window_batch=TEST3D_CHUNK,
+              dtype=torch.float32, device=DP_DEVICE, seed=5,
+              mode="tta" if kind == "tta" else "default")
+    engine = SlidingWindowEngine(UNet3D(CLASSES, initial_filter_size=FILTERS),
+                                 trees, mesh=mesh,
+                                 mesh_strategy="sample" if kind == "tta"
+                                 else "window", **kw)
+    return engine.run_volume(vol)
+
+
+def dp_rank(out_dir: str) -> None:
+    """One rank of the phase's world (DP_RANKS ranks on card 0, gloo):
+    the data-parallel softmax_config step at f32 and bf16 (the first
+    step's loss and averaged gradients kept, DP_TIMED_STEPS more timed),
+    the sharded deterministic and aleatoric scorers (f32 kept, bf16
+    timed), the engine's window and TTA sample strategies at 128^3, and
+    the gradient bucket's all-reduce timed; every kernel's launches
+    counted over that run. Rank 0 then computes the single-rank
+    references. Its results go to ``out_dir/rank{r}.pkl``; a failed
+    check raises, which fails the whole script."""
+    import torch
+    import torch.distributed as dist
+    from values_tpu_torch.core.seed import fold_seed
+    from values_tpu_torch.parallel.collectives import all_reduce_sum
+    from values_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                make_mesh,
+                                                make_parallel_train_step,
+                                                make_sharded_scorer,
+                                                shard_rows)
+    from values_tpu_torch.training.experiment import tree_leaves
+    if DP_DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed("gloo")       # two ranks on one card
+    rank = dist.get_rank()
+    by_data = make_mesh(n_data=DP_RANKS, n_sample=1)
+    by_sample = make_mesh(n_data=1, n_sample=DP_RANKS)
+    out = {"steps": {}, "scores": {}, "engine": {}}
+    reset_launches()
+    for precision in ("32", "bf16"):
+        exp, state = dp_experiment(precision)
+        step = make_parallel_train_step(exp, by_data)
+        gen = torch.Generator(device=DP_DEVICE).manual_seed(SEED)
+        state, loss = step(state, shard_rows(dp_batch(0), by_data), gen)
+        first = {"loss": float(loss), "grads": dp_grads(exp, state)}
+        times = []
+        for i in range(DP_TIMED_STEPS):
+            rows = shard_rows(dp_batch(1 + i), by_data)
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, loss = step(state, rows, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not all(bool(torch.isfinite(leaf).all())
+                   for leaf in tree_leaves(state.params)):
+            raise AssertionError(f"rank {rank}: non-finite parameters")
+        flat = torch.cat([leaf.grad.reshape(-1).float()
+                          for leaf in tree_leaves(state.params)])
+        reduce_ms = cuda_ms(lambda: all_reduce_sum(flat, by_data.data_group),
+                            reps=5)
+        first.update(step_ms=statistics.median(times), step_times=times,
+                     bucket_numel=flat.numel(), bucket_reduce_ms=reduce_ms)
+        out["steps"][precision] = first
+        del exp, state
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind, score in dp_scorers(dtype).items():
+            sharded = make_sharded_scorer(score, by_data)
+            inputs = dp_scorer_inputs(kind == "aleatoric")
+            got = sharded(*inputs, 7)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(N_BATCHES):
+                sharded(*inputs, 7)
+            torch.cuda.synchronize()
+            per_rank = BATCH // DP_RANKS * N_BATCHES
+            out["scores"][(kind, str(dtype))] = {
+                "scores": got.cpu(), "volumes_per_s_per_rank":
+                per_rank / (time.perf_counter() - t0)}
+    for kind, mesh in (("window", by_data), ("tta", by_sample)):
+        t0 = time.perf_counter()
+        out["engine"][kind] = {"out": dp_engine(kind, mesh),
+                               "s": time.perf_counter() - t0}
+    torch.cuda.synchronize()
+    out["launches"] = read_launches()
+    missing = [k for k in ("conv3d_fused", "conv3d_fused_train",
+                           "conv3d_fused_dx", "fused_entropy",
+                           "sampled_softmax_stats") if not out["launches"][k]]
+    if missing:
+        raise AssertionError(f"rank {rank}: {missing} never launched in the "
+                             f"data-parallel run: {out['launches']}")
+    dist.barrier()
+    if rank == 0:      # the single-rank references, counted nowhere
+        out["single"] = {}
+        for precision in ("32", "bf16"):
+            exp, state = dp_experiment(precision)
+            gen = torch.Generator(device=DP_DEVICE).manual_seed(SEED)
+            state, loss = exp.train_step(state, dp_batch(0), gen)
+            out["single"][precision] = {"loss": float(loss),
+                                        "grads": dp_grads(exp, state)}
+            del exp, state
+        for kind, score in dp_scorers(torch.float32).items():
+            w, vols, gt = dp_scorer_inputs(kind == "aleatoric")
+            half = BATCH // DP_RANKS
+            out["single"][kind] = torch.cat([
+                score(w, vols[i * half:(i + 1) * half],
+                      gt[i * half:(i + 1) * half], fold_seed(7, i))
+                for i in range(DP_RANKS)], dim=1).cpu()
+        for kind in ("window", "tta"):
+            out["single"][f"engine {kind}"] = dp_engine(kind)
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def grad_errors(got: dict, want: dict):
+    """Relative gradient errors of ``got`` against ``want``: over all
+    leaves (of the norm) and per leaf, the biases feeding an instance norm
+    aside (their true gradient is 0)."""
+    import torch
+    pairs = [(n, got[n], w) for n, w in want.items()
+             if not (n.startswith("contr_") and n.endswith("bias"))]
+    rel = {n: float((a - w).norm() / w.norm()) for n, a, w in pairs}
+    total = float(torch.sqrt(sum(((a - w) ** 2).sum() for _, a, w in pairs))
+                  / torch.sqrt(sum((w ** 2).sum() for _, _, w in pairs)))
+    return total, rel
+
+
+def dp_compare_grads(got: dict, want: dict, what: str, total_limit: float,
+                     leaf_limit: float, own=None) -> str:
+    """The averaged gradients of a data-parallel step against the
+    single-rank step's: over all leaves within ``total_limit`` of the
+    norm, each leaf within ``leaf_limit`` of its own. ``own``: the
+    single-rank step's own (total, per-leaf) error from a reference (bf16
+    against f32), which raises each limit to it: a leaf whose gradient
+    cancels to rounding (the bottleneck's biases in bf16) differs between
+    two summation orders by as much as bf16 differs from f32 there."""
+    total, rel = grad_errors(got, want)
+    limits = {n: max(leaf_limit, own[1][n]) if own else leaf_limit
+              for n in rel}
+    total_limit = max(total_limit, own[0]) if own else total_limit
+    worst = max(rel, key=lambda n: rel[n] / limits[n])
+    if total > total_limit or rel[worst] > limits[worst]:
+        raise AssertionError(f"{what}: gradient error {total:.2e} of the "
+                             f"norm (limit {total_limit:.2e}), "
+                             f"{rel[worst]:.2e} at {worst} (limit "
+                             f"{limits[worst]:.2e})")
+    return (f"gradient error {total:.2e} of the norm (limit "
+            f"{total_limit:.2e}), the leaf nearest its limit {worst} "
+            f"{rel[worst]:.2e} (limit {limits[worst]:.2e})")
+
+
+def nccl_one_rank(card: str) -> dict:
+    """A world of one rank over NCCL in this process: the data-parallel
+    step against the plain step, in turns (plain, data-parallel,
+    data-parallel, plain; DP_TIMED_STEPS steps each, bf16). The step's
+    gradient bucket and loss go through ``all_reduce_sum``'s NCCL branch
+    (a group of one still calls NCCL), so the difference is the hook's
+    cost: the flat bucket, its copy and NCCL's call, which in a world of
+    one moves no bytes between cards. Then that call alone on a float32
+    bucket of the model's parameter count: NCCL's floor on one card, not
+    a transfer."""
+    import torch
+    import torch.distributed as dist
+    from values_tpu_torch.parallel.collectives import all_reduce_sum
+    from values_tpu_torch.parallel.launch import free_port
+    from values_tpu_torch.parallel.mesh import (make_mesh,
+                                                make_parallel_train_step,
+                                                shard_rows)
+    from values_tpu_torch.training.experiment import tree_leaves
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(n_data=1, n_sample=1)
+        if mesh.data_group is None or \
+                dist.get_backend(mesh.data_group) != "nccl":
+            raise AssertionError("the 1-rank world has no NCCL data group")
+        exp, state = dp_experiment("bf16")
+        plain = exp.train_step
+        parallel = make_parallel_train_step(exp, mesh)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        batch = dp_batch(0)
+        state, loss = parallel(state, shard_rows(batch, mesh), gen)
+        if not bool(torch.isfinite(loss)):
+            raise AssertionError(f"the 1-rank NCCL step: loss {loss}")
+        times = {"plain": [], "data-parallel": []}
+        for name in ("plain", "data-parallel", "data-parallel", "plain"):
+            fn = plain if name == "plain" else parallel
+            for _ in range(DP_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = fn(state, batch, gen)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        numel = sum(leaf.numel() for leaf in tree_leaves(state.params))
+        bucket = torch.zeros(numel, device="cuda")
+        reduce_ms = queued_ms(lambda: all_reduce_sum(bucket,
+                                                     mesh.data_group))
+        out = {"plain_ms": statistics.median(times["plain"]),
+               "dp_ms": statistics.median(times["data-parallel"]),
+               "times": times, "params": numel, "bucket_bytes": 4 * numel,
+               "all_reduce_ms": reduce_ms}
+        log(f"data parallel, 1-rank NCCL world (bf16 softmax_config step, "
+            f"batch {TRAIN_BATCH} x {PATCH}^3): data-parallel step "
+            f"{out['dp_ms']:.2f} ms against the plain step "
+            f"{out['plain_ms']:.2f} ms (medians of {2 * DP_TIMED_STEPS} in "
+            f"turns); all_reduce_sum of the {numel}-parameter bucket "
+            f"({4 * numel} bytes) over NCCL in a world of one, no bytes "
+            f"between cards, {reduce_ms:.4f} ms (device time, 10 calls "
+            f"queued); card {card}")
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def data_parallel_path(card: str) -> dict:
+    """The "data parallel" phase: DP_RANKS spawned ranks on card 0 over
+    gloo (``dp_rank``), each result held against rank 0's single-rank
+    reference; then a 1-rank NCCL world in this process
+    (``nccl_one_rank``)."""
+    import torch
+    from values_tpu_torch.parallel.launch import spawn
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(OUT_DIR, "data_parallel")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    spawn(dp_rank, (out_dir,), DP_RANKS)
+    spawned_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    shutil.rmtree(out_dir)     # the ranks' volumes and gradients, ~1 GB
+    single = ranks[0]["single"]
+    # limits: f32 those of the first training step against the plain path
+    # (the two sides add K1's statistics and K1b's db by atomics in
+    # another order, and sum the loss over other rows); bf16 ten times
+    # looser, each raised to the bf16 step's own distance from the f32
+    # step where that is larger (a leaf that cancels to rounding)
+    limits = {"32": (2e-4, 1e-3, 1e-2), "bf16": (2e-3, 1e-2, 1e-1)}
+    own = {"32": None, "bf16": grad_errors(single["bf16"]["grads"],
+                                           single["32"]["grads"])}
+    report = {"ranks": DP_RANKS, "spawned_s": spawned_s, "steps": {},
+              "launches": [r["launches"] for r in ranks]}
+    for precision, (loss_rtol, total, leaf) in limits.items():
+        want = single[precision]
+        for r, res in enumerate(ranks):
+            got = res["steps"][precision]
+            rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            if rel > loss_rtol:
+                raise AssertionError(f"data-parallel {precision} step, rank "
+                                     f"{r}: loss {got['loss']} vs "
+                                     f"{want['loss']}")
+            msg = dp_compare_grads(got["grads"], want["grads"],
+                                   f"data-parallel {precision} step, rank "
+                                   f"{r}", total, leaf, own[precision])
+            log(f"data parallel, {'f32' if precision == '32' else precision} "
+                f"softmax_config step, rank {r} "
+                f"of {DP_RANKS} (gloo, one card): loss {got['loss']:.7f} vs "
+                f"single-rank {want['loss']:.7f} (rel {rel:.2e}); {msg}; "
+                f"step {got['step_ms']:.2f} ms (median of {DP_TIMED_STEPS}, "
+                f"{TRAIN_BATCH // DP_RANKS} rows a rank); gradient bucket "
+                f"all-reduce through the host "
+                f"{got['bucket_reduce_ms']:.3f} ms "
+                f"({4 * got['bucket_numel']} bytes); card {card}")
+        report["steps"][precision] = {
+            "step_ms": [r["steps"][precision]["step_ms"] for r in ranks],
+            "bucket_reduce_ms": [r["steps"][precision]["bucket_reduce_ms"]
+                                 for r in ranks],
+            "bucket_bytes": 4 * ranks[0]["steps"][precision]["bucket_numel"]}
+    report["volumes_per_s_per_rank"] = {}
+    for kind in ("deterministic", "aleatoric"):
+        want = single[kind]
+        for r, res in enumerate(ranks):
+            got = res["scores"][(kind, str(torch.float32))]["scores"]
+            err = (got - want).abs()
+            # the main path's limits against its plain path: image sums
+            # add 64^3 entropies in another order
+            if tuple(got.shape) != (10, BATCH) or \
+                    not bool((err <= 1e-3 + 1e-3 * want.abs()).all()):
+                raise AssertionError(f"sharded {kind} scorer, rank {r}: "
+                                     f"max_abs_err {float(err.max()):.3e}")
+        rates = {dt: [r["scores"][(kind, dt)]["volumes_per_s_per_rank"]
+                      for r in ranks]
+                 for dt in (str(torch.float32), str(torch.bfloat16))}
+        report["volumes_per_s_per_rank"][kind] = rates
+        log(f"data parallel, sharded {kind} scorer ({N_MEMBERS} members, "
+            f"batch {BATCH} over {DP_RANKS} ranks): f32 against the local "
+            f"scorer on each rank's rows with its folded seed, max_abs_err "
+            f"{float(err.max()):.3e}; volumes/s per rank " + ", ".join(
+                f"{dt.split('.')[-1]} {', '.join(f'{v:.2f}' for v in vs)}"
+                for dt, vs in rates.items()) + f"; card {card}")
+    for kind in ("window", "tta"):
+        want = single[f"engine {kind}"]
+        for r, res in enumerate(ranks):
+            got = res["engine"][kind]["out"]
+            if not np.array_equal(got[1], want[1]):
+                raise AssertionError(f"engine {kind} over {DP_RANKS} ranks, "
+                                     f"rank {r}: counts differ")
+            errs = [float(np.abs(g - w).max()) for g, w in
+                    zip((got[0], got[2]), (want[0], want[2]))]
+            if max(errs) > 1e-4:
+                raise AssertionError(f"engine {kind} over {DP_RANKS} ranks, "
+                                     f"rank {r}: max_abs_err {errs}")
+        layout = ("1 member x 16 TTA variants over the sample axis"
+                  if kind == "tta" else
+                  f"{N_MEMBERS} members, 8 windows over the data axis")
+        log(f"data parallel, engine {kind} strategy over {DP_RANKS} ranks "
+            f"({BIG}^3, f32, {layout}"
+            f"): softmax and data sums within {max(errs):.2e} of the "
+            f"single-rank engine, counts equal; "
+            f"{ranks[0]['engine'][kind]['s']:.2f} s on rank 0; card {card}")
+    for r, launches in enumerate(report["launches"]):
+        log(f"data parallel, rank {r} launches {json.dumps(launches)}")
+    report["nccl"] = nccl_one_rank(card)
+    with open(os.path.join(OUT_DIR, "data_parallel.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5761,6 +6332,9 @@ def main() -> int:
                          f"{t['max_abs_err']:.2e}, plain {t['plain_ms']:.3f}"
                          f" ms, F.conv3d(groups={N_MEMBERS}) f32 with TF32 "
                          f"off {t['library_ms']:.3f} ms")
+            for key in ("stream_regime", "shared_regime"):
+                if key in k:
+                    extra += f"; {key} {json.dumps(k[key])}"
             if "path_launches" in k:
                 extra += f"; other paths' launches {json.dumps(k['path_launches'])}"
             library = ("none" if k["library_ms"] is None
@@ -5814,6 +6388,16 @@ def main() -> int:
         twod = twod_path(smi)
     with phase("GTA training path", smi):
         gta = gta_training_path(smi)
+    with phase("data parallel", smi):
+        dp = data_parallel_path(smi)
+        for r, launches in enumerate(dp["launches"]):
+            run = f"data parallel rank {r} of {DP_RANKS}"
+            kernels[0]["path_launches"][run] = launches["conv3d_fused"]
+            kernels[1]["path_launches"][run] = launches["conv3d_fused_train"]
+            kernels[2].setdefault("path_launches", {})[run] = launches[
+                "fused_entropy"]
+            kernels[3].setdefault("path_launches", {})[run] = launches[
+                "sampled_softmax_stats"]
     log(f"headline: {vps:.2f} volumes/s deterministic, {a_vps:.2f} "
         f"volumes/s aleatoric ({N_ALEATORIC} samples) (ensemble-{N_MEMBERS},"
         f" {PATCH}^3, bf16, batch {BATCH}); training "
@@ -5876,6 +6460,18 @@ def main() -> int:
         + "; eval_config_gta seconds " + ", ".join(
             f"{t} {s:.2f}" for t, s in gta["tasks"].items())
         + f"; the phase {gta['seconds']:.1f} s; card {smi}")
+    log("headline, data parallelism (softmax_config f 8, 64^3, global "
+        f"batch {TRAIN_BATCH}; {DP_RANKS} gloo ranks sharing one card, so "
+        "no scaling claim): step ms a rank " + "; ".join(
+            f"{p} {', '.join(f'{v:.2f}' for v in r['step_ms'])}"
+            for p, r in dp["steps"].items())
+        + f"; 1-rank NCCL step {dp['nccl']['dp_ms']:.2f} ms against plain "
+        f"{dp['nccl']['plain_ms']:.2f} ms; its NCCL all-reduce of "
+        f"{dp['nccl']['bucket_bytes']} bytes in a world of one (no bytes "
+        f"between cards) {dp['nccl']['all_reduce_ms']:.4f} ms; sharded scorer volumes/s per rank (bf16) " + ", ".join(
+            f"{k} {', '.join(f'{v:.2f}' for v in r[str(torch.bfloat16)])}"
+            for k, r in dp["volumes_per_s_per_rank"].items())
+        + f"; the phase's spawned ranks {dp['spawned_s']:.1f} s; card {smi}")
     log(f"the script: {time.perf_counter() - T_START:.1f} s from its "
         f"imports to its last phase's end; card {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)

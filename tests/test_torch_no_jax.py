@@ -48,6 +48,30 @@ def test_every_module_imports_with_jax_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_parallel_package_is_checked_and_imports_inertly():
+    """The parallel layer (values_tpu_torch/parallel/) is among the
+    modules above, and importing it joins no torch.distributed world and
+    starts no process: a world exists only where an entry point was asked
+    for several devices."""
+    names = _module_names()
+    for module in ("collectives", "launch", "mesh", "spatial"):
+        assert f"values_tpu_torch.parallel.{module}" in names
+    code = ("import multiprocessing, torch.distributed as dist\n"
+            "import values_tpu_torch.parallel, "
+            "values_tpu_torch.parallel.launch, "
+            "values_tpu_torch.parallel.spatial\n"
+            "assert not dist.is_initialized()\n"
+            "assert not multiprocessing.active_children()\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for key in ("WORLD_SIZE", "RANK", "COORDINATOR_ADDRESS"):
+        env.pop(key, None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def _imported_roots(path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):

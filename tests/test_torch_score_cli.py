@@ -228,10 +228,12 @@ def _with_model_hparams(root, src, dst, **model):
 
 @pytest.mark.parametrize("case", ["devices"])
 def test_cli_refuses_what_is_not_ported(toy, tmp_path, case):
-    """Data-parallel scoring over several cards waits for the
-    torch.distributed item."""
+    """Data-parallel scoring runs (tests/test_torch_parallel_fit.py):
+    ``run_score`` asked for 2 devices in a process that belongs to no
+    torch.distributed world refuses, naming the launchers (the CLI's
+    ``main`` spawns the ranks itself)."""
     root, det, _, _ = toy
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         run_score(_port_args(root, det, tmp_path / "s.json", "--devices",
                              "2"))
 

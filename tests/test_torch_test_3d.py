@@ -225,8 +225,12 @@ def test_engine_run_volume_matches_jax(engine_runs, case, members_n):
 def test_engine_refusals():
     members = _members()
     model = UNet3D(2, initial_filter_size=F)
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    # a mesh is the port's parallel Mesh (tests/test_torch_parallel.py)
+    with pytest.raises(TypeError, match="Mesh"):
         SlidingWindowEngine(model, members, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mesh_strategy"):
+        SlidingWindowEngine(model, members, mesh_strategy="space",
+                            device="cpu")
     with pytest.raises(ValueError, match="backend"):
         SlidingWindowEngine(model, members, backend="tpu", device="cpu")
     with pytest.raises(ValueError, match="C1 prediction mode"):

@@ -364,9 +364,12 @@ def test_resume_and_retention(toy, tmp_path):
                                   "2d", "augment", "hrnet"])
 def test_refusals(toy, tmp_path, case, monkeypatch):
     """What is not ported raises NotImplementedError naming its ROADMAP
-    item. Dropout and SSN models now train (tests/test_torch_dropout_
-    training.py, test_torch_ssn_training.py): their configs still raise
-    for what is not ported, data parallelism. ``augment=True`` now runs
+    item: orbax checkpoints. Dropout and SSN models now train
+    (tests/test_torch_dropout_training.py, test_torch_ssn_training.py),
+    and data parallelism runs (tests/test_torch_parallel_fit.py): ``fit``
+    asked for 2 devices in a process that belongs to no torch.distributed
+    world refuses, naming the launchers (the training CLI spawns the
+    ranks itself), before the data is touched. ``augment=True`` now runs
     the native ops (tests/test_torch_lidc.py); a failed build of them
     raises instead of falling back to numpy."""
     if case == "augment":
@@ -405,13 +408,14 @@ def test_refusals(toy, tmp_path, case, monkeypatch):
             Experiment(make_config(dict(node, aleatoric_loss=True)), "cpu")
         return
     if case == "2d":
-        # 2D training runs (tests/test_torch_fit_2d.py); data-parallel 2D
-        # training is the torch.distributed item and raises before the
-        # data is touched
-        with pytest.raises(NotImplementedError, match="torch.distributed"):
-            main(["--config-name", "gta_softmax_config", "--device", "cpu",
-                  f"data_input_dir={tmp_path / 'none'}",
-                  f"save_dir={tmp_path / 'exp'}", "gpus=2"])
+        # 2D training runs (tests/test_torch_fit_2d.py), over several
+        # ranks too; fit outside a world refuses before the data is
+        # touched
+        cfg = compose("configs", "gta_softmax_config", [
+            f"data_input_dir={tmp_path / 'none'}",
+            f"save_dir={tmp_path / 'exp'}", "gpus=2"])
+        with pytest.raises(RuntimeError, match="torchrun"):
+            fit(cfg, device="cpu")
         return
     name, extra = {
         "dropout": ("dropout_config", ["gpus=2"]),
@@ -420,6 +424,11 @@ def test_refusals(toy, tmp_path, case, monkeypatch):
         "orbax": ("softmax_config", ["checkpoint_format=orbax"]),
     }[case]
     args = _cli_args(toy, tmp_path / "exp", *extra)
+    if case != "orbax":
+        cfg = compose("configs", name, args[2:])
+        with pytest.raises(RuntimeError, match="torchrun"):
+            fit(cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["--config-name", name] + args)
 

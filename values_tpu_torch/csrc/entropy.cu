@@ -35,7 +35,17 @@
 // each thread then reduces its own voxel out of shared memory and writes
 // its outputs, neighbouring threads on neighbouring voxels.
 //
-// The launcher returns cudaGetLastError() for the wrapper to raise on.
+// Shapes the staged tile cannot hold (more than kMaxC classes, or two
+// tiles of S C values a voxel over the shared memory a block may use) run
+// a second, streaming regime (fused_entropy_stream_kernel): each thread owns
+// one voxel and reads its S samples straight from device memory, per sample
+// the max and the sum of exponentials over C in the logits form and then the
+// probabilities, accumulating m in float32 in a (C, N) buffer (coalesced:
+// neighbouring threads on neighbouring voxels) and EE in a register; PE is
+// a final pass over C. It is a correctness regime, not a tuned one: each
+// thread's C values are one strided read per class.
+//
+// The launchers return cudaGetLastError() for the wrapper to raise on.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -231,6 +241,60 @@ int launch_c(const void* x, void* mean, void* pe, void* ee, void* mi, int n,
   return launch<T, 0, LOGITS>(x, mean, pe, ee, mi, n, s, c, ss, stream);
 }
 
+// The streaming regime (see the head of the file): any C, any S. ``acc``
+// (C, N) float32 holds the running sums of m; it is ``mean_out`` itself when
+// the outputs are float32.
+template <typename T, bool LOGITS>
+__global__ void __launch_bounds__(kTile)
+fused_entropy_stream_kernel(const T* __restrict__ x, float* acc,
+                            void* mean_out, void* pe_out, void* ee_out,
+                            void* mi_out, int n, int S, int C, long long ss) {
+  using Out = typename std::conditional<LOGITS, float, T>::type;
+  const long long v = blockIdx.x * (long long)kTile + threadIdx.x;
+  if (v >= n) return;
+  float ee = 0.0f;
+  for (int s = 0; s < S; ++s) {
+    const T* r = x + s * ss + v * C;
+    float mx = 0.0f, inv = 1.0f;
+    if (LOGITS) {   // the float32 softmax over C, in two passes
+      mx = to_f(r[0]);
+      for (int c = 1; c < C; ++c) mx = fmaxf(mx, to_f(r[c]));
+      float se = 0.0f;
+      for (int c = 0; c < C; ++c) se += ex2_approx(kLog2e * (to_f(r[c]) - mx));
+      inv = rcp_approx(se);    // se in [1, C]
+    }
+    for (int c = 0; c < C; ++c) {
+      float p = to_f(r[c]);
+      if (LOGITS) p = ex2_approx(kLog2e * (p - mx)) * inv;
+      float* a = acc + c * (long long)n + v;
+      *a = s == 0 ? p : *a + p;
+      ee += plogp(p);
+    }
+  }
+  const float inv_s = 1.0f / float(S);
+  float pe = 0.0f;
+  for (int c = 0; c < C; ++c) {
+    const float m = acc[c * (long long)n + v] * inv_s;
+    pe += plogp(m);
+    store(static_cast<Out*>(mean_out) + c * (long long)n + v, m);
+  }
+  pe = -pe;
+  ee = -ee * inv_s;
+  store(static_cast<Out*>(pe_out) + v, pe);
+  store(static_cast<Out*>(ee_out) + v, ee);
+  store(static_cast<Out*>(mi_out) + v, pe - ee);
+}
+
+template <typename T, bool LOGITS>
+int launch_stream(const void* x, float* acc, void* mean, void* pe, void* ee,
+                  void* mi, int n, int s, int c, long long ss,
+                  cudaStream_t stream) {
+  const long long grid = (n + kTile - 1) / kTile;
+  fused_entropy_stream_kernel<T, LOGITS><<<unsigned(grid), kTile, 0, stream>>>(
+      static_cast<const T*>(x), acc, mean, pe, ee, mi, n, s, c, ss);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // ``sample_stride``: the stride between samples, in elements, at least
@@ -250,4 +314,27 @@ extern "C" int fused_entropy_launch(int bf16, int logits, const void* x,
         : launch_c<__nv_bfloat16, false>(x, mean, pe, ee, mi, n, s, c, ss, st);
   return logits ? launch_c<float, true>(x, mean, pe, ee, mi, n, s, c, ss, st)
                 : launch_c<float, false>(x, mean, pe, ee, mi, n, s, c, ss, st);
+}
+
+// The streaming regime, for any C: ``acc`` is a (C, N) float32 buffer (the
+// mean output itself where the outputs are float32).
+extern "C" int fused_entropy_stream_launch(int bf16, int logits,
+                                           const void* x, float* acc,
+                                           void* mean, void* pe, void* ee,
+                                           void* mi, int n, int s, int c,
+                                           long long sample_stride,
+                                           void* stream) {
+  if (c < 1 || s < 1 || n < 1 || sample_stride < (long long)n * c)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long ss = sample_stride;
+  if (bf16)
+    return logits ? launch_stream<__nv_bfloat16, true>(x, acc, mean, pe, ee,
+                                                       mi, n, s, c, ss, st)
+                  : launch_stream<__nv_bfloat16, false>(x, acc, mean, pe, ee,
+                                                        mi, n, s, c, ss, st);
+  return logits ? launch_stream<float, true>(x, acc, mean, pe, ee, mi, n, s,
+                                             c, ss, st)
+                : launch_stream<float, false>(x, acc, mean, pe, ee, mi, n, s,
+                                              c, ss, st);
 }

@@ -55,6 +55,13 @@
 //   reciprocal: with d = l1 - l0 and t = e^-|d|, p_max = 1 / (1 + t) and
 //   H = log(1 + t) + |d| t / (1 + t); other C take the log-sum-exp form.
 //
+// More than kMaxC classes run a third kernel (sampled_stats_wide_kernel),
+// a correctness regime: the same draws per (voxel, member, sample, class),
+// each thread's per-class values (a sample's logits, the member's mu and
+// scale, the softmax sums) in shared memory (4 C floats a thread, the
+// block made smaller where 256 threads' would not fit), sum_p written once
+// (thread-owned, coalesced).
+//
 // The bits kernel writes the draws' bits from the same device functions,
 // so the bits are checked exactly against the plain version on the card.
 //
@@ -386,6 +393,81 @@ sampled_stats_kernel(Args a) {
   }
 }
 
+// More than kMaxC classes: as sampled_stats_kernel, draw for draw, with
+// the thread's per-class values in dynamic shared memory, class c of
+// thread t at [c * blockDim.x + t] in four planes: the current sample's
+// logits, the current member's mu and scale (read and exponentiated once
+// a member, not once a sample), and the softmax sums, written to sum_p
+// once at the end.
+template <bool COUNTER, bool LOGVAR, typename T>
+__global__ void __launch_bounds__(256)
+sampled_stats_wide_kernel(Args a) {
+  extern __shared__ float wide_smem[];
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = idx < a.n;
+  const int n = live ? idx : a.n - 1;
+  const int C = a.c;
+  const int stride = blockDim.x;
+  const int plane = C * stride;
+  float* const l = wide_smem + threadIdx.x;
+  float* const mu_s = l + plane;
+  float* const sc_s = l + 2 * plane;
+  float* const acc = l + 3 * plane;
+  const Source src = make_source(COUNTER, n, a.m, C, a.k0, a.k1, a.D, a.H,
+                                 a.W, a.rows);
+  const T* mu = static_cast<const T*>(a.mu) + n * a.smu_n;
+  const T* sc = static_cast<const T*>(a.scale) + n * a.ssc_n;
+  for (int c = 0; c < C; ++c) acc[c * stride] = 0.0f;
+  float acc_e = 0.0f;
+  for (int im = 0; im < a.m; ++im) {
+    for (int c = 0; c < C; ++c) {
+      mu_s[c * stride] = load_f(mu + im * a.smu_m + c * a.smu_c);
+      sc_s[c * stride] = load_scale<T, LOGVAR>(sc + im * a.ssc_m +
+                                               c * a.ssc_c);
+    }
+    int held = -1;
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = 0; i < a.n_samples; ++i) {
+      float mx = __int_as_float(0xff800000);   // -inf
+      for (int c = 0; c < C; ++c) {
+        unsigned bits;
+        if (COUNTER) {
+          bits = counter_word(src, im, i, c);
+        } else {
+          const int j = i * C + c;
+          if ((j >> 2) != held) {
+            held = j >> 2;
+            w = draw4<false>(src, im, held);
+          }
+          bits = word_of(w, j & 3);
+        }
+        const float lc = mu_s[c * stride] + sc_s[c * stride]
+                         * normal_vote(bits);
+        l[c * stride] = lc;
+        mx = fmaxf(mx, lc);
+      }
+      float se = 0.0f;
+      for (int c = 0; c < C; ++c) {
+        const float lc = l[c * stride] - mx;
+        l[c * stride] = lc;
+        se += ex2_approx(kLog2e * lc);
+      }
+      const float inv = rcp_approx(se), lse = kLn2 * lg2_approx(se);
+      for (int c = 0; c < C; ++c) {
+        const float lc = l[c * stride];
+        const float p = ex2_approx(kLog2e * lc) * inv;
+        acc[c * stride] += p;
+        acc_e -= p * (lc - lse);
+      }
+    }
+  }
+  if (live) {
+    for (int c = 0; c < C; ++c)
+      a.sum_p[(long long)c * a.n + idx] = acc[c * stride];
+    a.sum_ent[idx] = acc_e;
+  }
+}
+
 // The draws' bits, (N, M, n_samples, C) words, from the same device
 // functions as the sampling kernels.
 template <bool COUNTER>
@@ -408,20 +490,30 @@ sample_bits_kernel(unsigned* out, int n, int m, int c, int n_samples,
 }
 
 template <bool COUNTER, bool LOGVAR, typename T>
-void launch_typed(const Args& a, int block, cudaStream_t stream) {
+int launch_typed(const Args& a, int block, cudaStream_t stream) {
   const dim3 grid((a.n + block - 1) / block);
-  if (a.c == 2)
+  if (a.c == 2) {
     sampled_stats_c2_kernel<COUNTER, LOGVAR, T><<<grid, block, 0, stream>>>(a);
-  else
+  } else if (a.c <= kMaxC) {
     sampled_stats_kernel<COUNTER, LOGVAR, T><<<grid, block, 0, stream>>>(a);
+  } else {
+    auto kernel = sampled_stats_wide_kernel<COUNTER, LOGVAR, T>;
+    const int smem = 4 * block * a.c * int(sizeof(float));
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return int(e);
+    }
+    kernel<<<grid, block, smem, stream>>>(a);
+  }
+  return int(cudaGetLastError());
 }
 
 template <bool COUNTER, bool LOGVAR>
-void launch_logvar(const Args& a, int bf16, int block, cudaStream_t stream) {
-  if (bf16)
-    launch_typed<COUNTER, LOGVAR, __nv_bfloat16>(a, block, stream);
-  else
-    launch_typed<COUNTER, LOGVAR, float>(a, block, stream);
+int launch_logvar(const Args& a, int bf16, int block, cudaStream_t stream) {
+  if (bf16) return launch_typed<COUNTER, LOGVAR, __nv_bfloat16>(a, block,
+                                                                stream);
+  return launch_typed<COUNTER, LOGVAR, float>(a, block, stream);
 }
 
 }  // namespace
@@ -432,19 +524,19 @@ extern "C" int sampled_stats_launch(
     int n_samples, unsigned k0, unsigned k1, long long smu_n,
     long long smu_m, long long smu_c, long long ssc_n, long long ssc_m,
     long long ssc_c, int D, int H, int W, int rows, void* stream) {
-  if (c < 1 || c > kMaxC || block % 32 || block < 32 || block > 256)
+  // above kMaxC classes the block takes 4 * block * c floats of shared
+  // memory, at most the 227 KB a block may use
+  if (c < 1 || block % 32 || block < 32 || block > 256 ||
+      (c > kMaxC && 16LL * block * c > 232448))
     return int(cudaErrorInvalidValue);
   const Args a{mu, scale, sum_p, sum_ent, n, m, c, n_samples, k0, k1,
                smu_n, smu_m, smu_c, ssc_n, ssc_m, ssc_c, D, H, W, rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (counter) {
-    if (logvar) launch_logvar<true, true>(a, bf16, block, s);
-    else launch_logvar<true, false>(a, bf16, block, s);
-  } else {
-    if (logvar) launch_logvar<false, true>(a, bf16, block, s);
-    else launch_logvar<false, false>(a, bf16, block, s);
-  }
-  return int(cudaGetLastError());
+  if (counter)
+    return logvar ? launch_logvar<true, true>(a, bf16, block, s)
+                  : launch_logvar<true, false>(a, bf16, block, s);
+  return logvar ? launch_logvar<false, true>(a, bf16, block, s)
+                : launch_logvar<false, false>(a, bf16, block, s);
 }
 
 extern "C" int sample_bits_launch(int counter, int block, unsigned* out,

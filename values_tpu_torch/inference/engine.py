@@ -22,8 +22,17 @@ predictor in float32 (float64 in a float64 run, which is CPU-only: K1
 has no float64 regime). The coverage map (window counts, or summed
 Gaussian weights) is stitched once per volume over all its windows.
 
-``mesh`` (window or sample sharding over several devices) is ROADMAP.md
-Queue 1's "torch.distributed" item and raises NotImplementedError.
+``mesh`` (a :class:`~values_tpu_torch.parallel.mesh.Mesh` of ranks)
+spreads the work over a ``torch.distributed`` world (``:47-108``,
+``:290-345``): ``mesh_strategy="window"`` pads a volume's window list to
+a multiple of the data ranks with windows of weight 0 (not repeats, so
+the raw sums stay exact), each rank runs its contiguous share and
+stitches a full-volume partial sum, and one all-reduce over the data axis
+a volume assembles them (its draws from a generator folded with its data
+index, as the JAX engine folds its key); ``"sample"`` splits the global
+pass axis over the sample axis (:func:`~values_tpu_torch.parallel.mesh.
+make_parallel_pass_predict`) and gathers every chunk's stacks. Every
+rank returns the whole volume.
 """
 from __future__ import annotations
 
@@ -34,15 +43,18 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.seed import fold_seed
 from ..models.ensemble_unet3d import cast_weights, group_member_variables
 from ..models.ssn_unet3d import SsnUNet3D
 from ..models.unet3d import UNet3D
 from ..ops.window import (count_map, enumerate_window_starts,
                           extract_windows, gaussian_weight_map,
                           stitch_windows)
+from ..parallel.collectives import all_reduce_sum
+from ..parallel.mesh import Mesh, make_parallel_pass_predict
 from ..training.checkpoint import to_torch_tree
 from .carrier import VolumeCarrier
-from .predictors import make_predictor, not_ported, total_passes
+from .predictors import make_predictor, total_passes
 
 BACKENDS = ("auto", "xla", "pallas")
 
@@ -73,7 +85,13 @@ class SlidingWindowEngine:
             patch / 8).
         shape_bucket: pad each volume dim up to a multiple (outputs are
             cropped back; identical on the original extent).
-        device: the card unless ``"cpu"`` is asked for.
+        mesh: None, or this rank's
+            :class:`~values_tpu_torch.parallel.mesh.Mesh`; every rank of
+            the world builds its engine alike and runs the same volumes.
+        mesh_strategy: "window" (the windows over the data axis) or
+            "sample" (the passes over the sample axis).
+        device: the card unless ``"cpu"`` is asked for (this rank's
+            device in a mesh).
 
     :meth:`run_samples` loads and stages the next volume on a worker
     thread while the current one runs.
@@ -84,12 +102,14 @@ class SlidingWindowEngine:
                  n_aleatoric_samples: int = 10, patch_size: int = 64,
                  patch_overlap: float = 1.0, window_batch: int = 8,
                  dtype: torch.dtype = torch.float32, seed: int = 123,
-                 mesh: Any = None,
+                 mesh: Optional[Mesh] = None, mesh_strategy: str = "window",
                  weight_mode: str = "uniform", backend: str = "auto",
                  shape_bucket: Optional[int] = None, device=None):
-        if mesh is not None:
-            raise not_ported("window or sample sharding over a mesh",
-                             "torch.distributed")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh is a values_tpu_torch.parallel Mesh, not "
+                            f"{type(mesh).__name__}")
+        if mesh_strategy not in ("window", "sample"):
+            raise ValueError(f"unknown mesh_strategy {mesh_strategy!r}")
         if weight_mode not in ("uniform", "gaussian"):
             raise ValueError(f"unknown weight_mode {weight_mode!r}")
         if backend not in BACKENDS:
@@ -121,6 +141,10 @@ class SlidingWindowEngine:
         self.patch_overlap = patch_overlap
         self.window_batch = window_batch
         self.dtype = dtype
+        self.mesh = mesh
+        self.mesh_strategy = mesh_strategy if mesh is not None else None
+        if self.mesh_strategy == "window":
+            seed = fold_seed(seed, mesh.data_index)
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(seed))
         self.weight_mode = weight_mode
@@ -128,12 +152,18 @@ class SlidingWindowEngine:
         grouped = to_torch_tree(
             group_member_variables(variables_list)["params"])
         self.stacked_variables = cast_weights(grouped, dtype, self.device)
-        self.predictor = make_predictor(
-            mode, self.n_models, n_pred, n_aleatoric_samples,
-            do_dropout=bool(model.do_dropout),
-            num_classes=model.num_classes,
-            rank=getattr(model, "rank", 10),
-            epsilon=getattr(model, "epsilon", 1e-5))
+        model_kwargs = dict(do_dropout=bool(model.do_dropout),
+                            num_classes=model.num_classes,
+                            rank=getattr(model, "rank", 10),
+                            epsilon=getattr(model, "epsilon", 1e-5))
+        if self.mesh_strategy == "sample":
+            self.predictor = make_parallel_pass_predict(
+                mode, self.n_models, mesh, n_pred, n_aleatoric_samples,
+                **model_kwargs)
+        else:
+            self.predictor = make_predictor(
+                mode, self.n_models, n_pred, n_aleatoric_samples,
+                **model_kwargs)
 
     def _window_weight(self, dtype: torch.dtype) -> Optional[torch.Tensor]:
         """(p, p, p) stitching weight, or None for uniform."""
@@ -165,13 +195,19 @@ class SlidingWindowEngine:
             device=self.device, dtype=self.dtype)
         return volume_dev, tuple(volume.shape), orig_shape
 
-    def _chunk(self, volume_dev, part: np.ndarray, vol_shape):
+    def _chunk(self, volume_dev, part: np.ndarray, vol_shape,
+               valid: Optional[np.ndarray] = None):
         """One chunk of windows: (stitched softmax (*vol, S, C), stitched
-        sigma or None, stitched data (*vol))."""
+        sigma or None, stitched data (*vol)). ``valid``: each window's
+        weight, 0 for a pad window."""
         windows = extract_windows(volume_dev, part, self.patch_size)
         probs, sigma = self.predictor(self.stacked_variables,
                                       windows[..., None], self.generator)
         wmap = self._window_weight(self.dtype)
+        if valid is not None and not valid.all():
+            keep = torch.as_tensor(valid, dtype=self.dtype,
+                                   device=self.device)[:, None, None, None]
+            wmap = keep if wmap is None else keep * wmap
         if wmap is not None:
             probs = probs * wmap[..., None]
             windows = windows * wmap
@@ -215,11 +251,18 @@ class SlidingWindowEngine:
         # the ragged last chunk runs unpadded: a repeated window would
         # inflate the raw sums that C2 takes (test_3D.py:486-534)
         chunk = max(1, self.window_batch)
+        mine, valid = starts, np.ones(len(starts), dtype=bool)
+        if self.mesh_strategy == "window":
+            mine, valid = self._window_share(starts)
         total = None
-        for i in range(0, len(starts), chunk):
-            out = self._chunk(volume_dev, starts[i:i + chunk], vol_shape)
+        for i in range(0, len(mine), chunk):
+            out = self._chunk(volume_dev, mine[i:i + chunk], vol_shape,
+                              valid[i:i + chunk])
             total = list(out) if total is None else [
                 None if a is None else a + b for a, b in zip(total, out)]
+        if self.mesh_strategy == "window":   # one all-reduce a volume
+            total = [None if t is None else
+                     all_reduce_sum(t, self.mesh.data_group) for t in total]
         stitched, sigma_stitched, data_sums = total
         counts = self._coverage(starts, vol_shape, self.dtype)
 
@@ -251,6 +294,20 @@ class SlidingWindowEngine:
                 self._host(data_sums),
                 None if seg_sums is None else self._host(seg_sums),
                 None if sigma_sums is None else self._host(sigma_sums))
+
+    def _window_share(self, starts: np.ndarray):
+        """This rank's contiguous share of the window list padded to a
+        multiple of the data ranks, and which of its windows are real
+        (the pad repeats the last window at weight 0)."""
+        n_data = self.mesh.n_data
+        n = len(starts)
+        padded = -(-n // n_data) * n_data
+        valid = np.arange(padded) < n
+        full = np.concatenate([starts, np.repeat(starts[-1:], padded - n,
+                                                 axis=0)])
+        per = padded // n_data
+        lo = self.mesh.data_index * per
+        return full[lo:lo + per], valid[lo:lo + per]
 
     def _stitch_labels(self, labels: np.ndarray, starts: np.ndarray,
                        vol_shape) -> torch.Tensor:

@@ -23,10 +23,17 @@ sliding-window path. An HRNet checkpoint raises ValueError naming the
 2D tester, ``values_tpu_torch.inference.test_2d``: the JAX CLI builds
 UNet3D scorers only.
 
+``--devices N`` scores each batch over N ranks, one a card
+(``make_sharded_scorer``): each rank scores its rows with its own stream
+(the batch seed folded with the rank), the (10, b) matrices are gathered,
+and rank 0 writes the JSON. Every rank loads the whole batch. Under
+torchrun each rank joins the world it describes; without a launcher the
+command spawns the N local ranks itself (on the CPU over gloo).
+
 Usage:
     python -m values_tpu_torch.inference.score \\
         --checkpoint_paths ckpt1 ckpt2 ... -i <data> --out scores.json \\
-        --test_split id [--device cpu]
+        --test_split id [--device cpu] [--devices N]
 """
 from __future__ import annotations
 
@@ -44,6 +51,10 @@ from ..data.samples import get_val_test_data_samples
 from ..models.ensemble_unet3d import cast_weights
 from ..models.ssn_unet3d import SSN_HEADS, is_ssn_target
 from ..models.torch_import import group_member_state_dicts, is_hrnet_target
+from ..parallel.launch import launched, spawn
+from ..parallel.mesh import (initialize_distributed, make_mesh,
+                             make_sharded_scorer, rank_device,
+                             requested_ranks, world_size)
 from ..training.checkpoint import load_any_checkpoint
 from . import scoring
 from .test_3d import (dir_and_subjects_from_train,
@@ -82,18 +93,12 @@ def score_cli(argv=None) -> argparse.Namespace:
     parser.add_argument("--dtype", type=str, default="bfloat16",
                         choices=sorted(DTYPES))
     parser.add_argument("--devices", type=str, default=None,
-                        help="data-parallel scoring over N cards; not "
-                        "ported yet beyond 1")
+                        help="data-parallel scoring over N cards (or "
+                        "'all'): the batch splits over N ranks")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to score on (cuda, or cpu for "
                         "the kernels' plain versions)")
     return parser.parse_args(argv)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to values_tpu_torch yet (ROADMAP.md, Queue 1: "
-        f"{item!r}); use values_tpu.inference.score")
 
 
 def build_scorer(hparams: Dict, members: int, args, device
@@ -180,10 +185,20 @@ def _volumes_by_image(hparams: Dict, args) -> Dict[str, List[Dict]]:
 
 
 def run_score(args) -> Dict[str, Dict[str, float]]:
-    if args.devices not in (None, "1"):
-        raise _not_ported("data-parallel scoring (--devices)",
-                          "torch.distributed")
-    device = resolve_device(args.device)
+    device = torch.device(args.device)
+    initialize_distributed("nccl" if device.type == "cuda" else "gloo")
+    n_devices = requested_ranks(args.devices, args.device)
+    mesh = None
+    if n_devices > 1:
+        if world_size() != n_devices:
+            raise RuntimeError(
+                f"--devices {n_devices} scores over one process a device, "
+                f"but this process's torch.distributed world has "
+                f"{world_size()}: run python -m "
+                "values_tpu_torch.inference.score (which spawns the local "
+                "ranks) or torchrun")
+        mesh = make_mesh(n_data=n_devices, n_sample=1)
+    device = resolve_device(rank_device(device))
     loaded = [load_any_checkpoint(p) for p in args.checkpoint_paths]
     hparams = loaded[0][0]  # the first member pins the config
     if any(is_hrnet_target(hp) for hp, _ in loaded):
@@ -194,6 +209,8 @@ def run_score(args) -> Dict[str, Dict[str, float]]:
     seed = hparams.get("seed", 123)
     set_seed(seed)
     score, rows = build_scorer(hparams, len(loaded), args, device)
+    if mesh is not None:
+        score = make_sharded_scorer(score, mesh)
     by_image = _volumes_by_image(hparams, args)
     grouped = group_member_state_dicts([s for _, s in loaded])
     weights = cast_weights(grouped, DTYPES[args.dtype], device)
@@ -221,13 +238,20 @@ def run_score(args) -> Dict[str, Dict[str, float]]:
             subject = os.path.basename(p).rsplit(".", 1)[0]
             results[subject] = {r: float(out[k, j])
                                 for k, r in enumerate(rows)}
-    save_json(results, args.out)
-    print(f"wrote {len(results)} volumes x {len(rows)} scores -> {args.out}")
+    if mesh is None or mesh.rank == 0:
+        save_json(results, args.out)
+        print(f"wrote {len(results)} volumes x {len(rows)} scores -> "
+              f"{args.out}")
     return results
 
 
 def main(argv=None) -> None:
-    run_score(score_cli(argv))
+    args = score_cli(argv)
+    ranks = requested_ranks(args.devices, args.device)
+    if ranks > 1 and not launched():
+        spawn(run_score, (args,), ranks)
+    else:
+        run_score(args)
 
 
 if __name__ == "__main__":

@@ -437,6 +437,26 @@ def ungroup_member_variables(grouped: Mapping, members: int,
     return [{"params": t} for t in trees]
 
 
+def member_slice(weights: Mapping[str, Mapping[str, torch.Tensor]],
+                 lo: int, hi: int, members: int
+                 ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Members [lo, hi) of M grouped ``weights`` (:func:`cast_weights`
+    layout) as the grouped weights of hi - lo members: the transposed
+    convs' member rows, every other leaf's member blocks of its output
+    channels, contiguous (K1 takes its weights so)."""
+    if (lo, hi) == (0, members):
+        return {name: dict(leaves) for name, leaves in weights.items()}
+    out = {}
+    for name, leaves in weights.items():
+        if name in TRANSPOSED:
+            out[name] = {k: v[lo:hi].contiguous() for k, v in leaves.items()}
+        else:
+            out[name] = {k: v[..., lo * (v.shape[-1] // members):
+                               hi * (v.shape[-1] // members)].contiguous()
+                         for k, v in leaves.items()}
+    return out
+
+
 def stack_dtype(dtype: torch.dtype) -> torch.dtype:
     """Stacks leave a predictor in float32, or float64 in a float64 run
     (``values_tpu/inference/engine.py:195-205``)."""
@@ -455,6 +475,15 @@ def make_grouped_ensemble_predictor(members: int):
     return predict
 
 
+def grouped_aleatoric_heads(weights, x: torch.Tensor, members: int):
+    """(mu, s), each (M, B, D, H, W, C) in the stacks' type: one fused
+    forward of the grouped aleatoric model."""
+    out = grouped_forward_fused(weights, x, members)
+    out = out.to(stack_dtype(x.dtype)).movedim(-2, 0)  # (M, B, .., 2C)
+    mu, s = torch.chunk(out, 2, dim=-1)
+    return mu, s
+
+
 def make_grouped_aleatoric_predictor(members: int,
                                      n_aleatoric_samples: int = 10):
     """``predict(weights, x, generator)`` -> ((M*S, B, D, H, W, C) softmax
@@ -463,9 +492,7 @@ def make_grouped_aleatoric_predictor(members: int,
     member, ``eps`` (M, S, B, D, H, W, C) is drawn from ``generator`` in
     the stacks' type, and :func:`aleatoric_softmax_samples` maps them."""
     def predict(weights, x, generator: Optional[torch.Generator]):
-        out = grouped_forward_fused(weights, x, members)
-        out = out.to(stack_dtype(x.dtype)).movedim(-2, 0)  # (M, B, .., 2C)
-        mu, s = torch.chunk(out, 2, dim=-1)
+        mu, s = grouped_aleatoric_heads(weights, x, members)
         eps = torch.randn((members, n_aleatoric_samples) + tuple(mu.shape[1:]),
                           generator=generator, dtype=mu.dtype,
                           device=mu.device)
@@ -621,6 +648,19 @@ def make_grouped_tta_predictor(members: int, do_dropout: bool = False):
     return predict
 
 
+def grouped_ssn_distributions(weights, x: torch.Tensor, members: int,
+                              num_classes: int, rank: int = 10,
+                              epsilon: float = 1e-5) -> List[LowRankMVN]:
+    """Each member's low-rank normal over its logits: one grouped trunk
+    forward, then the member's three 1x1x1 heads in the stacks' type."""
+    dtype = stack_dtype(x.dtype)
+    feats = grouped_forward_fused(weights, x, members, apply_final=False)
+    return [ssn_distribution(feats[..., m, :].to(dtype),
+                             member_heads(weights, m, members, dtype),
+                             num_classes, rank, epsilon)
+            for m in range(members)]
+
+
 def make_grouped_ssn_predictor(members: int, num_classes: int, n_pred: int,
                                rank: int = 10, epsilon: float = 1e-5):
     """``predict(weights, x, generator)`` -> ((M*n_pred, B, D, H, W, C)
@@ -630,12 +670,8 @@ def make_grouped_ssn_predictor(members: int, num_classes: int, n_pred: int,
     over a batch of M*B (member-major) and ``n_pred`` samples of it drawn
     at once."""
     def predict(weights, x, generator=None):
-        dtype = stack_dtype(x.dtype)
-        feats = grouped_forward_fused(weights, x, members, apply_final=False)
-        dists = [ssn_distribution(feats[..., m, :].to(dtype),
-                                  member_heads(weights, m, members, dtype),
-                                  num_classes, rank, epsilon)
-                 for m in range(members)]
+        dists = grouped_ssn_distributions(weights, x, members, num_classes,
+                                          rank, epsilon)
         dist = LowRankMVN(*(torch.cat(t) for t in zip(
             *((d.mean, d.cov_diag, d.cov_factor) for d in dists))))
         samples = dist.rsample(generator, n_pred)   # (S, M*B, C*V)

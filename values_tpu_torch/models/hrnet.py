@@ -45,6 +45,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..parallel.collectives import current_shard, draw_rows, global_sum
 from .ssn_unet3d import LowRankMVN
 
 BN_MOMENTUM = 0.1
@@ -74,6 +75,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        shard = current_shard()
+        if shard is not None and shard.size > 1:
+            return self._synced(x, shard)
         with torch.no_grad():
             stats = x if x.dtype == torch.float64 else x.to(torch.float32)
             var, mean = torch.var_mean(stats, dim=(0, 2, 3), unbiased=False)
@@ -84,6 +88,30 @@ class BatchNorm2d(nn.BatchNorm2d):
             pending.append((self, mean, var))
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _synced(self, x: torch.Tensor, shard) -> torch.Tensor:
+        """Training mode inside a data-parallel step: the mean and biased
+        variance over the global batch (two differentiable all-reduces
+        over the data axis, in float32 or float64), as the JAX package's
+        jit over the mesh takes them; the running update as above, with
+        those statistics. Returns float32 (float64 for float64 input),
+        as ``F.batch_norm`` does under autocast."""
+        compute = torch.float64 if x.dtype == torch.float64 \
+            else torch.float32
+        xc = x.to(compute)
+        count = shard.size * xc.numel() // xc.shape[1]
+        mean = global_sum(xc.sum(dim=(0, 2, 3))) / count
+        centred = xc - mean[None, :, None, None]
+        var = global_sum((centred * centred).sum(dim=(0, 2, 3))) / count
+        pending = _PENDING.get()
+        stats = (self, mean.detach(), var.detach())
+        if pending is None:
+            update_running_stats([stats])
+        else:
+            pending.append(stats)
+        scale = self.weight.to(compute) * torch.rsqrt(var + self.eps)
+        return (centred * scale[None, :, None, None]
+                + self.bias.to(compute)[None, :, None, None])
 
 
 def update_running_stats(updates) -> None:
@@ -376,8 +404,9 @@ def dropout_final(x: torch.Tensor,
     if generator is None:
         raise ValueError("this HRNet draws dropout masks on this pass: "
                          "forward needs a generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=torch.float32) >= DROPOUT_FINAL_RATE
+    keep = draw_rows(lambda shape: torch.rand(
+        shape, generator=generator, device=x.device, dtype=torch.float32),
+        x.shape) >= DROPOUT_FINAL_RATE
     return torch.where(keep, x / (1.0 - DROPOUT_FINAL_RATE),
                        torch.zeros_like(x))
 

@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.collectives import draw_rows
 from .unet3d import UNet3D
 
 # the three SSN heads, in the order of the reference module
@@ -89,9 +90,11 @@ class LowRankMVN:
         ``terms`` from :meth:`sampling_terms`, if already taken."""
         factor, sqrt_diag = terms or self.sampling_terms()
         b, dim = self.mean.shape
-        eps_r, eps_d = draw_ssn_normals(generator, n, b, factor.shape[-1],
-                                        dim, self.mean.dtype,
-                                        self.mean.device)
+        # in a data-parallel step: the global batch's normals, this
+        # rank's rows
+        eps_r, eps_d = draw_rows(lambda shape: list(draw_ssn_normals(
+            generator, n, shape[1], factor.shape[-1], dim, self.mean.dtype,
+            self.mean.device)), (n, b), dim=1)
         return (self.mean[None] + torch.einsum("bnr,sbr->sbn", factor, eps_r)
                 + sqrt_diag[None] * eps_d)
 

@@ -28,6 +28,13 @@ a stack of any other strides, or one not 16-byte aligned, into that
 layout: one extra read and write of the stack, which the scorer's view
 never pays.
 
+Two regimes, chosen by :func:`plan` from (S, C, dtype): ``"tile"`` stages
+256-voxel tiles in shared memory (up to 16 classes and 454 bytes of
+samples a voxel); ``"stream"`` takes every other shape, each thread
+streaming its voxel's samples from device memory, with the mean's running
+sums in a float32 (C, N) buffer. Both take both forms and both types and
+guard ``p log p`` alike.
+
 :func:`fused_entropy` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors; it never falls back from one to the other.
 The library is built at the first launch.
@@ -47,6 +54,19 @@ _DTYPES = (torch.float32, torch.bfloat16)
 MAX_CLASSES = 16              # entropy.cu's kMaxC
 TILE = 256                    # voxel rows a block stages (entropy.cu's kTile)
 SMEM_LIMIT = 232448           # bytes of shared memory a block may use
+
+
+def plan(s: int, c: int, dtype: torch.dtype) -> str:
+    """K2's regime for a stack of S samples of C classes in ``dtype``:
+    ``"tile"`` where two staged tiles of 256 voxels fit a block's shared
+    memory and C is at most :data:`MAX_CLASSES`, else ``"stream"``."""
+    if s < 1 or c < 1:
+        raise ValueError(f"fused_entropy takes S >= 1 and C >= 1, not "
+                         f"S={s} C={c}")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if c <= MAX_CLASSES and 2 * TILE * s * c * itemsize <= SMEM_LIMIT:
+        return "tile"
+    return "stream"
 
 
 def fused_entropy_reference(stack: torch.Tensor, *, logits: bool = False
@@ -73,6 +93,10 @@ def load_kernel() -> ctypes.CDLL:
     fn = lib.fused_entropy_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p])
+    fn = lib.fused_entropy_stream_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
                    + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p])
     return lib
 
@@ -115,12 +139,10 @@ def fused_entropy(stack: torch.Tensor, *, logits: bool = False
     if stack.ndim != 3:
         raise ValueError(f"stack: shape {tuple(stack.shape)} is not (S, C, N)")
     s, c, n = stack.shape
-    smem = 2 * TILE * s * c * stack.element_size()
-    if not (1 <= c <= MAX_CLASSES and n >= 1 and smem <= SMEM_LIMIT
-            and n * c < 2 ** 31):
-        raise ValueError(f"fused_entropy takes 1 to {MAX_CLASSES} classes "
-                         f"and at most {SMEM_LIMIT // (2 * TILE)} bytes a "
-                         f"voxel, not S={s} x C={c} x N={n} in {stack.dtype}")
+    if not (n >= 1 and n * c < 2 ** 31):
+        raise ValueError(f"fused_entropy takes 1 to 2**31 - 1 values a "
+                         f"sample, not C={c} x N={n}")
+    regime = plan(s, c, stack.dtype)
     rows, sample_stride = stack, _sample_stride(stack)
     if sample_stride == 0:                # copy to (S, N, C), padded rows
         sample_stride = _aligned_stride(stack)
@@ -132,17 +154,26 @@ def fused_entropy(stack: torch.Tensor, *, logits: bool = False
     pe, ee, mi = (torch.empty((n,), dtype=out, device=stack.device)
                   for _ in range(3))
     lib = load_kernel()
+    flags = (int(stack.dtype == torch.bfloat16), int(logits))
+    outs = (mean.data_ptr(), pe.data_ptr(), ee.data_ptr(), mi.data_ptr())
     with torch.cuda.device(stack.device):
-        rc = lib.fused_entropy_launch(
-            int(stack.dtype == torch.bfloat16), int(logits), rows.data_ptr(),
-            mean.data_ptr(), pe.data_ptr(), ee.data_ptr(), mi.data_ptr(), n,
-            s, c, sample_stride,
-            torch.cuda.current_stream(stack.device).cuda_stream)
+        cuda_stream = torch.cuda.current_stream(stack.device).cuda_stream
+        if regime == "tile":
+            rc = lib.fused_entropy_launch(*flags, rows.data_ptr(), *outs, n,
+                                          s, c, sample_stride, cuda_stream)
+        else:   # the mean's float32 running sums
+            acc = mean if out == torch.float32 else torch.empty(
+                (c, n), dtype=torch.float32, device=stack.device)
+            rc = lib.fused_entropy_stream_launch(
+                *flags, rows.data_ptr(), acc.data_ptr(), *outs, n, s, c,
+                sample_stride, cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_entropy launch failed with CUDA error {rc}")
     fused_entropy.launches += 1
+    fused_entropy.regime_launches[regime] += 1
     return {"mean_softmax": mean, "pred_entropy": pe,
             "expected_entropy": ee, "mutual_information": mi}
 
 
 fused_entropy.launches = 0
+fused_entropy.regime_launches = {"tile": 0, "stream": 0}

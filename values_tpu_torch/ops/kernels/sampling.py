@@ -36,6 +36,12 @@ Acklam's :func:`inverse_normal_cdf`. Two bit sources:
   draw on NDHWC tensors. It needs ``spatial=(D, H, W)`` with
   ``128 % W == 0`` and ``D % counter_rows == 0``.
 
+:func:`plan` picks one of three kernels from C: the two-class one, the
+general one up to 8 classes (accumulators in registers), and above 8 one
+that holds each thread's per-class values (logits, mu, scale, sums) in
+shared memory; all three draw the same bits for (voxel, member, sample,
+class).
+
 The kernel evaluates Acklam's central branch with every product and sum
 rounded (``__fmul_rn``/``__fadd_rn``): it cancels some 180-fold near its
 edges in float32, so a fused evaluation would move z by up to 3e-4 from
@@ -62,6 +68,7 @@ BITS = ("philox", "counter")
 MAX_CLASSES = 8               # sampling.cu's kMaxC
 LANES = 128
 BLOCK = 256
+SMEM_LIMIT = 232448           # bytes of shared memory a block may use
 MASK32 = 0xFFFFFFFF
 
 # Philox4x32-10 (Salmon et al. 2011, Random123)
@@ -336,6 +343,27 @@ def load_kernel() -> ctypes.CDLL:
     return lib
 
 
+def plan(c: int, block: int = BLOCK) -> Tuple[str, int]:
+    """K3's kernel for C classes and its block: ``"two_class"`` at C = 2,
+    ``"registers"`` up to :data:`MAX_CLASSES` (C + 1 accumulators a
+    thread), ``"shared"`` above (4 C floats a thread in shared memory: a
+    sample's logits, the member's mu and scale, the sums; the block
+    halved until they fit). Raises where even 32 threads' overflow a
+    block's shared memory."""
+    if c < 1:
+        raise ValueError(f"sampled_softmax_stats takes C >= 1, not {c}")
+    if c == 2:
+        return "two_class", block
+    if c <= MAX_CLASSES:
+        return "registers", block
+    while block > 32 and 16 * block * c > SMEM_LIMIT:
+        block //= 2
+    if 16 * block * c > SMEM_LIMIT:
+        raise ValueError(f"sampled_softmax_stats takes at most "
+                         f"{SMEM_LIMIT // (32 * 16)} classes, not {c}")
+    return "shared", block
+
+
 def _launch_geometry(n: int, m: int, c: int, seed: int, bits: str, spatial,
                      counter_rows):
     """The key words and the counter geometry (ones in Philox mode)."""
@@ -372,9 +400,7 @@ def sampled_softmax_stats(mu: torch.Tensor, sigma: Optional[torch.Tensor],
                         f"(one type for mu and the scale), not {mu.dtype} "
                         f"and {scale.dtype}")
     n, m, c = mu.shape
-    if c > MAX_CLASSES:
-        raise ValueError(f"sampled_softmax_stats takes at most "
-                         f"{MAX_CLASSES} classes, not {c}")
+    regime, block = plan(c, BLOCK)
     if n == 0 or n * c >= 2 ** 31:
         raise ValueError(f"sampled_softmax_stats writes 1 to 2**31 - 1 "
                          f"values of sum_p, not N={n} x C={c}")
@@ -385,7 +411,7 @@ def sampled_softmax_stats(mu: torch.Tensor, sigma: Optional[torch.Tensor],
     with torch.cuda.device(mu.device):
         rc = lib.sampled_stats_launch(
             int(mu.dtype == torch.bfloat16), int(is_log_var),
-            int(bits == "counter"), BLOCK,
+            int(bits == "counter"), block,
             mu.data_ptr(), scale.data_ptr(), sum_p.data_ptr(),
             sum_ent.data_ptr(), n, m, c, n_samples, *key, *mu.stride(),
             *scale.stride(), *geo,
@@ -394,10 +420,13 @@ def sampled_softmax_stats(mu: torch.Tensor, sigma: Optional[torch.Tensor],
         raise RuntimeError(f"sampled_softmax_stats launch failed with CUDA "
                            f"error {rc}")
     sampled_softmax_stats.launches += 1
+    sampled_softmax_stats.regime_launches[regime] += 1
     return sum_p, sum_ent
 
 
 sampled_softmax_stats.launches = 0
+sampled_softmax_stats.regime_launches = {"two_class": 0, "registers": 0,
+                                         "shared": 0}
 
 
 def sample_bits(n: int, m: int, c: int, seed: int, *, n_samples: int,

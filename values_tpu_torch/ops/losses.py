@@ -8,7 +8,8 @@ uncertainty_modeling/loss_modules.py:7-94, lightning_experiment.py:175-266):
   ``-(2 intersect + smooth) / (sum + smooth)``, smooth 1e-5 in both
   nominator and denominator by default;
 - :func:`cross_entropy`: ``F.cross_entropy`` semantics on (B, C, ...)
-  logits with an optional ``ignore_index`` (mean over kept voxels);
+  logits with an optional ``ignore_index`` (mean over kept voxels; of
+  the global batch inside a data-parallel step);
 - :func:`dice_ce_loss`: SoftDice(softmax) + CE, or plain CE with
   ``ignore_index`` when it is not 0;
 - :func:`aleatoric_sampling_loss`: the logit-sampling objective. Its
@@ -26,6 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import current_shard, global_sum
 from .metrics import nll_loss, select_class
 
 
@@ -76,7 +78,13 @@ def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
         mask = (target != ignore_index).to(nll.dtype)
         nll = nll * mask
         if reduction == "mean":
-            return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+            # in a data-parallel step the global batch's kept voxels,
+            # over the data axis's size: the ranks' mean is the
+            # single-device loss on the global batch
+            shard = current_shard()
+            size = 1 if shard is None else shard.size
+            count = torch.clamp(global_sum(torch.sum(mask)), min=1.0)
+            return torch.sum(nll) / (count / size)
     if reduction == "mean":
         return torch.mean(nll)
     if reduction == "none":

@@ -76,6 +76,7 @@ from ..models.torch_import import (hrnet_params_from_torch,
                                    unet3d_params_from_torch)
 from ..ops import losses as L
 from ..ops import metrics as M
+from ..parallel.collectives import draw_rows
 from . import optim
 from .checkpoint import to_numpy_tree
 
@@ -326,9 +327,11 @@ class Experiment:
                 ignore_index=self.ignore_index)
         if self.aleatoric_loss:
             mu, s = (_channel_first(t.to(torch.float32)) for t in out)
-            return L.aleatoric_sampling_loss(
-                mu, s, target, generator=generator,
-                n_samples=self.n_aleatoric_samples)
+            eps = draw_rows(lambda shape: torch.randn(
+                shape, generator=generator, device=mu.device,
+                dtype=mu.dtype), (self.n_aleatoric_samples,) + mu.shape,
+                dim=1)
+            return L.aleatoric_sampling_loss(mu, s, target, eps=eps)
         return L.dice_ce_loss(_channel_first(out.to(torch.float32)), target,
                               ignore_index=self.ignore_index)
 
@@ -347,9 +350,9 @@ class Experiment:
         """The training forward of ``data`` under ``params`` (both already
         in the compute type): a dropout model first draws the step's keep
         masks from ``generator``."""
-        masks = (draw_keep_masks(single_member_tree(params),
-                                 tuple(data.shape), generator, data.device)
-                 if self.has_dropout else None)
+        masks = (draw_rows(lambda shape: draw_keep_masks(
+            single_member_tree(params), shape, generator, data.device),
+            data.shape) if self.has_dropout else None)
         if self.is_ssn:
             return ssn_train_forward(params, data, self.num_classes,
                                      self.rank, self.epsilon,
@@ -379,9 +382,12 @@ class Experiment:
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None,
-                   pretrain: bool = False
+                   pretrain: bool = False, reduce_grads=None
                    ) -> Tuple[TrainState, torch.Tensor]:
-        """One update of ``state`` in place; returns it and the loss."""
+        """One update of ``state`` in place; returns it and the loss.
+        ``reduce_grads(leaves)``: run on the gradients between the
+        backward and clipping (the data-parallel step's average,
+        :func:`~values_tpu_torch.parallel.mesh.make_parallel_train_step`)."""
         state.optimizer.zero_grad(set_to_none=True)
         if self.is_2d:
             state.params.train()
@@ -391,6 +397,8 @@ class Experiment:
         for leaf in leaves:
             if leaf.grad is None:  # unused this step: jax.grad gives 0
                 leaf.grad = torch.zeros_like(leaf)
+        if reduce_grads is not None:
+            reduce_grads(leaves)
         if self.gradient_clip_val is not None:
             optim.clip_grads_by_global_norm(leaves, self.gradient_clip_val)
         state.optimizer.step()

@@ -9,9 +9,21 @@ self-describing checkpoints under
 ``AUGMENTATIONS`` is the 2D path (JAX :126-135, :190-193): the 2D
 datamodule built with the augmentations, batch size, epochs and seed, the
 HRNet from ``init_state_2d`` on the crop's height and width, and
-checkpoints of its ``{params, batch_stats}``. Data-parallel training
-(``devices``/``gpus`` > 1, ``dcn_granules``) is ROADMAP.md Queue 1's
-``torch.distributed`` item and raises.
+checkpoints of its ``{params, batch_stats}``.
+
+Data parallelism (JAX :104-107, :141-185, :236-340): ``devices``/``gpus``
+> 1 trains over a ``torch.distributed`` world of that many ranks, one a
+card (clamped to the visible cards, with the JAX message), the data axis
+laid out over ``dcn_granules`` nodes when given. The world comes from a
+launcher (torchrun) or from ``values_tpu_torch.training.main``, which
+spawns the local ranks itself. Rank 0 prepares the data behind a
+barrier; every rank iterates the same seeded loader and keeps its rows of
+each global batch (so the global batch is byte-equal to the single-rank
+one, for N times the host's loading work), a ragged tail batch is dropped
+as the JAX loop drops it, the step is
+:func:`~values_tpu_torch.parallel.mesh.make_parallel_train_step`, every
+rank validates on the whole batch (the plateau decision is rank 0's), and
+rank 0 alone logs and writes checkpoints.
 """
 from __future__ import annotations
 
@@ -22,10 +34,15 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config, instantiate
 from ..core.device import resolve_device
 from ..core.seed import set_seed
+from ..parallel.mesh import (global_rank, initialize_distributed,
+                             make_hybrid_mesh, make_mesh,
+                             make_parallel_train_step, rank_device,
+                             requested_ranks, shard_rows, world_size)
 from . import optim
 from .checkpoint import (TORCH_OPTIMIZER_KEY, CheckpointRetention,
                          load_checkpoint, to_torch_tree)
@@ -33,15 +50,10 @@ from .experiment import Experiment
 from .tb_logging import TensorBoardLogger
 
 
-def resolve_device_count(value) -> int:
-    """A ``devices`` / reference ``gpus`` config value: an int, a numeric
-    string (the reference writes ``gpus: '1'``), or "all"/-1 for every
-    visible card."""
-    if value is None:
-        return 1
-    if str(value).strip().lower() in ("all", "-1"):
-        return torch.cuda.device_count()
-    return max(1, int(value))
+def data_parallel_ranks(cfg: Config, device) -> int:
+    """The data-parallel width that ``devices`` (or the reference's
+    ``gpus``) asks for, clamped to what ``device``'s type shows."""
+    return requested_ranks(cfg.get("devices", cfg.get("gpus")), device)
 
 
 def _device_batch(batch: Dict, device: torch.device) -> Dict:
@@ -125,7 +137,15 @@ def fit(cfg: Config, max_steps_override: Optional[int] = None,
     checkpoint whose parameters, optimizer state, epoch and step are
     restored (a JAX checkpoint's optax state is not: the optimizer
     starts afresh)."""
-    device = resolve_device(device)
+    device = torch.device(device if device is not None else "cuda")
+    initialize_distributed("nccl" if device.type == "cuda" else "gloo")
+    n_devices = data_parallel_ranks(cfg, device)
+    mesh = _training_mesh(cfg, n_devices)
+    device = resolve_device(rank_device(device))
+    # one writer of data, logs and checkpoints in a world of several
+    # ranks (the JAX package's process 0)
+    shared = world_size() > 1
+    is_main = global_rank() == 0
     seed = int(cfg.get("seed", 123))
     set_seed(seed)
     if "DATASET_LOCATION" in os.environ:
@@ -134,25 +154,23 @@ def fit(cfg: Config, max_steps_override: Optional[int] = None,
         cfg["save_dir"] = os.environ["EXPERIMENT_LOCATION"]
     if "LSB_JOBID" in os.environ and not cfg.get("version"):
         cfg["version"] = os.environ["LSB_JOBID"]
-    n_devices = resolve_device_count(cfg.get("devices", cfg.get("gpus")))
-    if n_devices > 1 or int(cfg.get("dcn_granules", 0) or 0) > 1:
-        raise NotImplementedError(
-            f"data-parallel training over {n_devices} devices is not "
-            "ported yet (ROADMAP.md, Queue 1: 'torch.distributed')")
 
-    logger_cfg = cfg.get("logger")
-    if logger_cfg:
-        logger = instantiate(dict(logger_cfg, version=cfg.get("version")))
-    else:
-        logger = TensorBoardLogger(cfg.get("save_dir", "."),
-                                   cfg.get("exp_name", "default"),
-                                   version=cfg.get("version"))
+    logger = _logger(cfg) if is_main else None
+    if shared:   # rank 0's version on every rank
+        version = [cfg.get("version") or (logger.version if is_main
+                                          else None)]
+        dist.broadcast_object_list(version, src=0)
+        cfg["version"] = version[0]
+        logger = logger or _logger(cfg)
     if not cfg.get("version"):
         cfg["version"] = logger.version
 
     is_2d = "AUGMENTATIONS" in cfg
     datamodule = build_datamodule(cfg)
-    datamodule.prepare_data()
+    if is_main:
+        datamodule.prepare_data()   # one writer of the preprocessed data
+    if shared:
+        dist.barrier()
     datamodule.setup()
 
     experiment = Experiment(cfg, device)
@@ -192,7 +210,13 @@ def fit(cfg: Config, max_steps_override: Optional[int] = None,
     if schedule.kind == "polynomial" and schedule.total_iters <= 0:
         schedule = schedule._replace(total_iters=max_steps)
     plateau = optim.PlateauTracker(schedule)
-    logger.log_hparams(cfg.to_container())
+    if is_main:
+        logger.log_hparams(cfg.to_container())
+    step = experiment.train_step
+    if mesh is not None:
+        step = make_parallel_train_step(experiment, mesh)
+        print(f"data-parallel over {mesh.shape} mesh"
+              + (f" ({_dcn(cfg)} DCN granules)" if _dcn(cfg) > 1 else ""))
 
     t_start = time.time()
     for epoch in range(start_epoch, max_epochs):
@@ -201,19 +225,37 @@ def fit(cfg: Config, max_steps_override: Optional[int] = None,
         pretrain = experiment.is_ssn and epoch < experiment.pretrain_epochs
         epoch_losses = []
         for batch in train_loader:
+            if mesh is not None:
+                if len(batch["data"]) % n_devices:
+                    # a ragged tail batch does not divide: dropped, as
+                    # the JAX loop drops it (logged once)
+                    if not getattr(fit, "_ragged_warned", False):
+                        fit._ragged_warned = True
+                        print(f"dropping ragged batch of "
+                              f"{len(batch['data'])} (not divisible by "
+                              f"{n_devices} devices)")
+                    continue
+                batch = shard_rows(batch, mesh)
             if schedule.kind == "polynomial":
                 optim.set_learning_rate(state.optimizer,
                                         schedule.value(global_step))
-            state, loss = experiment.train_step(
-                state, _device_batch(batch, device), generator, pretrain)
+            state, loss = step(state, _device_batch(batch, device),
+                               generator, pretrain)
             epoch_losses.append(loss)
             global_step += 1
             if max_steps_override and global_step >= max_steps_override:
                 break
+        if not epoch_losses:
+            raise RuntimeError(
+                f"epoch {epoch} ran zero steps: every batch was smaller "
+                f"than the {n_devices}-device mesh width (train set too "
+                "small for the configured batch_size/devices)")
         train_loss = float(torch.stack(epoch_losses).float().mean())
-        logger.log_scalars({"training/train_loss": train_loss,
-                            "lr": optim.get_learning_rate(state.optimizer)},
-                           global_step)
+        if is_main:
+            logger.log_scalars(
+                {"training/train_loss": train_loss,
+                 "lr": optim.get_learning_rate(state.optimizer)},
+                global_step)
 
         val_metrics: Dict[str, list] = {}
         for i, batch in enumerate(val_loader):
@@ -221,13 +263,18 @@ def fit(cfg: Config, max_steps_override: Optional[int] = None,
             out = experiment.val_step(state.params, batch, generator)
             for k, v in out.items():
                 val_metrics.setdefault(k, []).append(float(v))
-            if i == 0:
+            if i == 0 and is_main:
                 _log_val_image(logger, experiment, state.params, batch,
                                global_step)
         val_means = {f"validation/{k}": float(np.mean(v))
                      for k, v in val_metrics.items()}
-        logger.log_scalars(val_means, global_step)
+        if is_main:
+            logger.log_scalars(val_means, global_step)
         val_loss = val_means.get("validation/val_loss", train_loss)
+        if shared:   # one plateau and retention decision
+            shared = [val_loss]
+            dist.broadcast_object_list(shared, src=0)
+            val_loss = shared[0]
         print(f"epoch {epoch}: train_loss={train_loss:.4f} "
               + " ".join(f"{k.split('/')[-1]}={v:.4f}"
                          for k, v in val_means.items())
@@ -235,12 +282,46 @@ def fit(cfg: Config, max_steps_override: Optional[int] = None,
 
         if schedule.kind == "plateau":
             optim.set_learning_rate(state.optimizer, plateau.step(val_loss))
-        retention.save(experiment.variables(state), cfg.to_container(),
-                       epoch=epoch, global_step=global_step,
-                       torch_optimizer_state=state.optimizer.state_dict(),
-                       monitored=val_loss)
+        if is_main:
+            retention.save(experiment.variables(state), cfg.to_container(),
+                           epoch=epoch, global_step=global_step,
+                           torch_optimizer_state=state.optimizer.state_dict(),
+                           monitored=val_loss)
         if max_steps_override and global_step >= max_steps_override:
             break
 
-    logger.finalize()
+    if is_main:
+        logger.finalize()
+    if shared:   # the checkpoint is written before any rank returns
+        dist.barrier()
     return os.path.join(retention.ckpt_dir, "last.ckpt")
+
+
+def _dcn(cfg: Config) -> int:
+    return int(cfg.get("dcn_granules", 0) or 0)
+
+
+def _training_mesh(cfg: Config, n_devices: int):
+    """The data-parallel mesh of ``n_devices`` ranks (over ``dcn_granules``
+    nodes, granule-major), or None for one device."""
+    if n_devices <= 1:
+        return None
+    if world_size() != n_devices:
+        raise RuntimeError(
+            f"data-parallel training over {n_devices} devices runs one "
+            f"process a device, but this process's torch.distributed world "
+            f"has {world_size()}: launch it through python -m "
+            "values_tpu_torch.training.main (which spawns the local ranks) "
+            "or torchrun")
+    if _dcn(cfg) > 1:
+        return make_hybrid_mesh(n_sample=1, dcn_data=_dcn(cfg))
+    return make_mesh(n_data=n_devices, n_sample=1)
+
+
+def _logger(cfg: Config):
+    logger_cfg = cfg.get("logger")
+    if logger_cfg:
+        return instantiate(dict(logger_cfg, version=cfg.get("version")))
+    return TensorBoardLogger(cfg.get("save_dir", "."),
+                             cfg.get("exp_name", "default"),
+                             version=cfg.get("version"))

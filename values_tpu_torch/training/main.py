@@ -17,6 +17,13 @@ and ``gta_softmax_config model=hrnet_config_dropout_final`` (MC dropout
 on the final branches). HRNet training starts from the random
 initialisation unless ``MODEL.PRETRAINED`` names a local weights file.
 
+Data parallelism: ``devices=N`` (or the reference's ``gpus=N``) trains
+over N ranks, one process a card. Under torchrun (``torchrun
+--nproc_per_node N -m values_tpu_torch.training.main ... devices=N``) each
+rank joins the world it describes; without a launcher this command
+spawns the N local ranks itself. On the CPU (``--device cpu``) the ranks
+are processes over gloo.
+
 Precision on the card: K1 and K1b's dx (the hand-written kernels) run
 float32 as 3xTF32, float32's accuracy. The float32 convolution outside
 them, cuDNN's weight gradient of every 3x3x3 conv, runs under cuDNN's
@@ -34,7 +41,8 @@ import argparse
 from pathlib import Path
 
 from ..config import compose
-from .loops import fit
+from ..parallel.launch import launched, spawn
+from .loops import data_parallel_ranks, fit
 
 DEFAULT_CONFIG_DIR = str(Path(__file__).resolve().parents[2] / "configs")
 
@@ -52,7 +60,21 @@ def main(argv=None) -> str:
     args = parser.parse_args(argv)
 
     cfg = compose(args.config_dir, args.config_name, args.overrides)
-    ckpt = fit(cfg, device=args.device)
+    ranks = data_parallel_ranks(cfg, args.device)
+    if ranks > 1 and not launched():
+        return spawn(_train, (args.config_dir, args.config_name,
+                              args.overrides, args.device), ranks)
+    return _train(args.config_dir, args.config_name, args.overrides,
+                  args.device, cfg)
+
+
+def _train(config_dir: str, config_name: str, overrides, device,
+           cfg=None) -> str:
+    """Train (as one rank of a spawned world, composing the config
+    anew); the final checkpoint's path."""
+    if cfg is None:
+        cfg = compose(config_dir, config_name, overrides)
+    ckpt = fit(cfg, device=device)
     print(f"Training done. Final checkpoint: {ckpt}")
     return ckpt
 
