@@ -135,7 +135,15 @@ Phases, each of which raises on failure:
    against off; ``test_2d`` on the trained checkpoints (5 families, 4
    splits) and ``eval_config_gta``'s six tasks, each timed; no launch
    of K1-K3;
-8n. last, "data parallel": 2 ranks spawned on card 0 over gloo (NCCL
+8n. "reporting" (host only, ``evaluation/visualization``): the table CLI
+   on ``table_config_lidc`` over the first cycle that 8l evaluated and on
+   ``table_config_gta`` over the tree that 8m evaluated, each cut to its
+   shift, seed and models and to the tasks its phase wrote, every mean
+   cell held against the task JSONs it reads (1e-12); ``run_plots`` on
+   ``plot_config`` cut the same way, every SVG parsed with one bar per
+   (group, dataset); no pandas, matplotlib or seaborn imported and no
+   launch of K1-K3;
+8o. last, "data parallel": 2 ranks spawned on card 0 over gloo (NCCL
    refuses two ranks on one card), each running a data-parallel
    ``softmax_config`` step at f32 and bf16 (published widths, a global
    batch of 8, 4 rows a rank), the sharded deterministic and aleatoric
@@ -160,8 +168,12 @@ Phases, each of which raises on failure:
    K1 at each of the 18 convs (with its regime) and its shallow and
    tile16 kernels against each other where plan() chooses between them,
    and break one batch of each scoring path down by device kernel with
-   torch.profiler, checking that no cast, exp or softmax runs over the
-   logits or the head outside K2 and K3.
+   torch.profiler, checking that no cast, exp, softmax, division, copy
+   or clone runs over the logits or the head outside K2 and K3; K2 and K3
+   are also timed by device time (10 calls queued behind a spin kernel),
+   and each profiled batch and step logs its kernel records against the
+   launches the host made in it (a shortfall marks its totals
+   unchecked).
 
 Prints a ``{"kernels": [...]}`` JSON line and ends with
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -1758,8 +1770,11 @@ def joint_training_path(root: str, card: str):
         with torch.no_grad():
             k1_fwd = device_times(lambda: trainer.loss(state.params,
                                                        batches[0]))[3]
+        before = read_launches()["conv3d_fused"]
         table, wall, busy, k1, dw = device_times(
             lambda: trainer.train_step(state, batches[0]))
+        records = kernel_records(table, {
+            "conv3d_fused": read_launches()["conv3d_fused"] - before})
         with open(os.path.join(OUT_DIR, f"profile_joint_step_{name}.txt"),
                   "w") as fh:
             fh.write(table.table(sort_by="self_device_time_total",
@@ -1780,8 +1795,8 @@ def joint_training_path(root: str, card: str):
             f"{busy:.2f} of {wall:.2f} ms wall, idle share "
             + ("not measured" if not busy else f"{1 - busy / wall:.3f}")
             + f", K1 forward {k1_fwd:.2f} ms, K1 dx {k1 - k1_fwd:.2f} ms, dW "
-            f"(cuDNN) {dw:.2f} ms, the rest {busy - k1 - dw:.2f} ms; card "
-            f"{card}")
+            f"(cuDNN) {dw:.2f} ms, the rest {busy - k1 - dw:.2f} ms; "
+            f"{records_note(records)}; card {card}")
         if name == "f32":
             ckpts = trainer.save_member_checkpoints(
                 state, os.path.join(root, "joint_members"),
@@ -2816,7 +2831,9 @@ def adam_moves_unused_head(exp, state, batch, card: str) -> None:
 def profile_step(step, filename: str) -> dict:
     """One step under torch.profiler: device time, idle share, the five
     largest device ops."""
+    before = read_launches()
     table, wall, busy, k1, dw = device_times(step)
+    k1_launches = read_launches()["conv3d_fused"] - before["conv3d_fused"]
     with open(os.path.join(OUT_DIR, filename), "w") as fh:
         fh.write(table.table(sort_by="self_device_time_total",
                              row_limit=40))
@@ -2825,7 +2842,8 @@ def profile_step(step, filename: str) -> dict:
                  key=lambda e: -e.self_device_time_total)[:5]
     top = [(e.key[:60], e.self_device_time_total / 1e3) for e in ops]
     return {"wall_ms": wall, "busy_ms": busy, "k1_ms": k1, "dw_ms": dw,
-            "idle": None if not busy else 1 - busy / wall, "top": top}
+            "idle": None if not busy else 1 - busy / wall, "top": top,
+            "records": kernel_records(table, {"conv3d_fused": k1_launches})}
 
 
 def time_steps(step, batch_volumes: int, label: str, filename: str,
@@ -2861,7 +2879,7 @@ def time_steps(step, batch_volumes: int, label: str, filename: str,
         + f", K1 {prof['k1_ms']:.2f} ms, dW (cuDNN) {prof['dw_ms']:.2f} ms;"
         " top device ops " + ", ".join(f"{n} {t:.2f} ms"
                                        for n, t in prof["top"])
-        + f"; card {card}")
+        + f"; {records_note(prof['records'])}; card {card}")
     return out
 
 
@@ -2955,7 +2973,8 @@ def joint_dropout_path(root: str, card: str) -> dict:
                 + ("not measured" if prof["idle"] is None
                    else f"{prof['idle']:.3f}")
                 + ", top device ops " + ", ".join(
-                    f"{n} {t:.2f} ms" for n, t in prof["top"]))
+                    f"{n} {t:.2f} ms" for n, t in prof["top"])
+                + f"; {records_note(prof['records'])}")
             + f"; card {card}")
     return out
 
@@ -3673,6 +3692,11 @@ def al_path(card: str) -> dict:
         f"steps' summed time; al_improvement {json.dumps(improvement)}; "
         f"LIDC tree {counts['nodules']} nodules in {write_s:.2f} s; the "
         f"phase {out['seconds']['phase']:.1f} s; card {card}")
+    # the first cycle's results stay for the reporting phase, which
+    # removes them
+    kept = tempfile.mkdtemp(dir=OUT_DIR, prefix="al_first_")
+    shutil.move(first, kept)
+    out["first_cycle"] = os.path.join(kept, "FirstCycle")
     shutil.rmtree(root)
     return out
 
@@ -3830,6 +3854,10 @@ def time_k2(launches, grouped, vols):
                        reps=5)
     probs_ms = cuda_ms(lambda: fused_entropy(probs), reps=20, inner=10)
     probs_plain_ms = cuda_ms(lambda: fused_entropy_reference(probs), reps=5)
+    # device time: 10 calls queued behind a spin kernel, so that the card
+    # runs them back to back whatever the host's pace
+    queued = queued_ms(lambda: fused_entropy(view, logits=True))
+    probs_queued = queued_ms(lambda: fused_entropy(probs))
     # read S*C logits (bf16) or probabilities (f32); write C + 3 floats.
     # Operations per voxel: the softmax per sample (5C - 1: max, shift,
     # exp, sum, reciprocal, scale), then mean, p log p, sums, MI
@@ -3845,10 +3873,11 @@ def time_k2(launches, grouped, vols):
             "replaces": "values_tpu/ops/pallas/entropy.py:28",
             "launches": launches["fused_entropy"], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
+            "bound_by": bound_by, "library_ms": None, "queued_ms": queued,
             "shape": f"logits form, S={m} C={c} N={n} bf16, the forward's "
                      "sample-major layout",
             "probs_ms": probs_ms, "probs_plain_ms": probs_plain_ms,
+            "probs_queued_ms": probs_queued,
             "probs_bound_ms": probs_bound_ms,
             "probs_bound_by": probs_bound_by,
             "probs_shape": f"probability form, S={m} C={c} N={n} f32 "
@@ -3974,6 +4003,7 @@ def time_k3(launches, grouped, vols):
         raise AssertionError(f"K3 at the path's shape: max_abs_err {err}")
     del got, want
     ms = cuda_ms(lambda: sampled_softmax_stats(mu, None, 3, **kw), reps=20)
+    queued = queued_ms(lambda: sampled_softmax_stats(mu, None, 3, **kw))
     plain_ms = cuda_ms(lambda: sampled_softmax_stats_reference(
         mu, None, 3, **kw), reps=2, warmup=1)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -4008,7 +4038,7 @@ def time_k3(launches, grouped, vols):
             "launches": launches["sampled_softmax_stats"],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "loop_ms": loop_ms, "operations": flops,
+            "queued_ms": queued, "loop_ms": loop_ms, "operations": flops,
             "sfu_operations": sfu, "mufu_ms": mufu_ms,
             "max_sm_clock_mhz": clock_mhz,
             "shape": f"N={n} M={N_MEMBERS} C={c} n={N_ALEATORIC} bf16 "
@@ -4182,6 +4212,50 @@ def device_times(fn):
     return table, wall, busy, k1, dw
 
 
+# the host's kernel launches, as the profiler names the runtime and driver
+# calls
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
+# the port's kernels by wrapper: the profiler's kernel names
+WRAPPER_KERNELS = {"conv3d_fused": K1_KERNELS,
+                   "fused_entropy": ("fused_entropy_kernel",
+                                     "fused_entropy_stream_kernel"),
+                   "sampled_softmax_stats": ("sampled_stats_c2_kernel",
+                                             "sampled_stats_kernel",
+                                             "sampled_stats_wide_kernel")}
+
+
+def kernel_records(table, wrapper_launches=None) -> dict:
+    """A profile's count of device kernel records against the kernel
+    launches the host made in it (``LAUNCH_CALLS``), and, for the port's
+    kernels, its records of each against the launches its wrapper counted
+    (``wrapper_launches``). The profiler has dropped kernel records in
+    long sessions: a profile whose records fall short of its launches has
+    unchecked device-time totals."""
+    records = sum(e.count for e in table if "CUDA" in str(e.device_type)
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.key.startswith(("Memcpy", "Memset")))
+    launches = sum(e.count for e in table if e.key in LAUNCH_CALLS)
+    out = {"records": records, "launches": launches,
+           "complete": records >= launches}
+    for name, want in (wrapper_launches or {}).items():
+        got = sum(e.count for e in table if "CUDA" in str(e.device_type)
+                  and any(k in e.key for k in WRAPPER_KERNELS[name]))
+        out[name] = {"records": got, "launches": want}
+        out["complete"] = out["complete"] and got >= want
+    return out
+
+
+def records_note(rec: dict) -> str:
+    """The log's words for ``kernel_records``."""
+    ports = "".join(f", {n} {r['records']} of {r['launches']}"
+                    for n, r in rec.items() if isinstance(r, dict))
+    return (f"{rec['records']} kernel records of {rec['launches']} "
+            f"launches{ports}" + ("" if rec["complete"] else
+                                  " (records lost: these totals are "
+                                  "unchecked)"))
+
+
 # the elementwise ops that K1b's dx entry does in the kernel (the fold, the
 # flip, the float32 copies for the fold and db, db's sum)
 K1B_HOST_OPS = ("aten::where", "aten::flip", "aten::_to_copy", "aten::add",
@@ -4271,8 +4345,11 @@ def time_training(exp32, state32, batch, root: str, card: str):
                 exp.loss(state.params, batch)
 
         _, _, _, k1_fwd, _ = device_times(forward)
+        before = read_launches()["conv3d_fused"]
         table, wall, busy, k1, dw = device_times(
             lambda: exp.train_step(state, batch))
+        records = kernel_records(table, {
+            "conv3d_fused": read_launches()["conv3d_fused"] - before})
         # K1b's dx: one launch of the dx entry each, and no separate fold,
         # flip or float32 copy of dy around it
         kernels = [e for e in table if "CUDA" in str(e.device_type)
@@ -4300,7 +4377,7 @@ def time_training(exp32, state32, batch, root: str, card: str):
                         "busy_ms": busy, "k1_forward_ms": k1_fwd,
                         "k1_dx_ms": dx_ms, "dx_launches": dx_launches,
                         "host_ops": ops, "k1b_backward_ops": k1b_ops,
-                        "dw_ms": dw,
+                        "dw_ms": dw, "records": records,
                         "other_ms": busy - k1 - dw}
         r = result[name]
         if not busy:
@@ -4316,8 +4393,8 @@ def time_training(exp32, state32, batch, root: str, card: str):
             f"{ops['aten::where']}, aten::_to_copy "
             f"{ops['aten::_to_copy']} in the step; over volumes in K1b's "
             f"backward outside dW {k1b_ops}), K1 in all {k1:.2f} ms, "
-            f"dW (cuDNN) {dw:.2f} ms, the rest {busy - k1 - dw:.2f} ms; card "
-            f"{card}")
+            f"dW (cuDNN) {dw:.2f} ms, the rest {busy - k1 - dw:.2f} ms; "
+            f"{records_note(records)}; card {card}")
     return result
 
 
@@ -4444,9 +4521,19 @@ def time_k1_layers(grouped, vols):
 
 
 # what must not run over the logits or the head outside K2 and K3: a
-# cast, an exp, a softmax or a division of a tensor that large
+# cast, an exp, a softmax, a division, a copy or a clone of a tensor that
+# large
 HEAD_OPS = ("aten::_to_copy", "aten::exp", "aten::softmax",
-            "aten::_softmax", "aten::div")
+            "aten::_softmax", "aten::div", "aten::copy_", "aten::clone")
+# The one copy of that size a scored batch makes, and not of the head: the
+# k2s2 transposed convs' interleave, the reshape of the permuted GEMM
+# output, a 9-D (B, D, 2, H, 2, W, 2, M, Cout) tensor
+# (values_tpu_torch/models/ensemble_unet3d.py::transpose_conv_k2s2; at
+# 64^3 and 32^3 it has 335,544,320 and 83,886,080 elements). The JAX
+# package's packed forward makes the same copy
+# (values_tpu/models/ensemble_unet3d_pallas.py::_transpose_conv_k2s2, its
+# step (3) transpose).
+K2S2_INTERLEAVE_OPS, K2S2_INTERLEAVE_DIMS = ("aten::copy_", "aten::clone"), 9
 
 
 def profile_batch(score, args, label: str, filename: str, head_numel: int):
@@ -4459,16 +4546,22 @@ def profile_batch(score, args, label: str, filename: str, head_numel: int):
     from torch.profiler import ProfilerActivity, profile
     score(*args)
     torch.cuda.synchronize()
+    before = read_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
         score(*args)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    over_head = sorted({(e.name, str(e.input_shapes[0]))
-                        for e in prof.events() if e.name in HEAD_OPS
-                        and e.input_shapes and e.input_shapes[0]
-                        and math.prod(e.input_shapes[0]) >= head_numel})
+    after = read_launches()
+    big = [(e.name, e.input_shapes[0]) for e in prof.events()
+           if e.name in HEAD_OPS and e.input_shapes and e.input_shapes[0]
+           and math.prod(e.input_shapes[0]) >= head_numel]
+    interleave = [(n, shape) for n, shape in big
+                  if n in K2S2_INTERLEAVE_OPS
+                  and len(shape) == K2S2_INTERLEAVE_DIMS]
+    over_head = sorted({(n, str(shape)) for n, shape in big
+                        if (n, shape) not in interleave})
     if over_head:
         raise AssertionError(f"profile {label}: operators over the head or "
                              f"the logits: {over_head}")
@@ -4477,6 +4570,8 @@ def profile_batch(score, args, label: str, filename: str, head_numel: int):
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels)
+    records = kernel_records(table, {k: after[k] - before[k]
+                                     for k in WRAPPER_KERNELS})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, filename), "w") as fh:
         fh.write(table.table(sort_by="self_device_time_total",
@@ -4486,8 +4581,11 @@ def profile_batch(score, args, label: str, filename: str, head_numel: int):
         return
     log(f"profile of one {label} batch ({BATCH} volumes): device kernels "
         f"{busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall, idle share "
-        f"{1 - busy / wall_us:.3f} (profiler on); no cast, exp, softmax or "
-        f"division of {head_numel} or more elements")
+        f"{1 - busy / wall_us:.3f} (profiler on); no cast, exp, softmax, "
+        f"division, copy or clone of {head_numel} or more elements but the "
+        f"k2s2 interleave's {len(interleave)} (copy_ and clone of "
+        f"{sorted({str(shape) for _, shape in interleave})}); "
+        f"{records_note(records)}")
     for e in kernels[:10]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
             f"{100 * e.self_device_time_total / busy:5.1f}%  "
@@ -5354,6 +5452,7 @@ def gta_step_numbers(exp, state, batch, label: str, card: str,
                              row_limit=40, max_name_column_width=120))
     families = kernel_families(table)
     busy = sum(families.values())
+    records = kernel_records(table)
     n = batch["data"].shape[0]
     med = statistics.median(times)
     out = {"median_ms": med, "min_ms": min(times), "max_ms": max(times),
@@ -5361,7 +5460,7 @@ def gta_step_numbers(exp, state, batch, label: str, card: str,
            "max_ips": n / min(times) * 1e3, "peak_gb": peak,
            "busy_ms": busy, "wall_ms": wall,
            "idle": None if not busy else 1 - busy / wall,
-           "families": families}
+           "families": families, "records": records}
     log(f"HRNet-W48 training step {label}, batch {n} x "
         f"{tuple(batch['data'].shape[1:3])}: steps " + " / ".join(
             f"{t:.2f}" for t in times) + f" ms, median {med:.2f} ms, "
@@ -5371,7 +5470,7 @@ def gta_step_numbers(exp, state, batch, label: str, card: str,
         + ("not measured" if not busy else f"{out['idle']:.3f}")
         + "; by family " + ", ".join(f"{k} {v:.2f} ms"
                                      for k, v in families.items())
-        + f"; host {host_ops(table)}; card {card}")
+        + f"; host {host_ops(table)}; {records_note(records)}; card {card}")
     return out
 
 
@@ -5718,6 +5817,9 @@ def gta_training_path(card: str) -> dict:
         + f"; results {json.dumps(results)}; card {card}")
 
     launches = read_launches()
+    # eval_config_gta's tree stays for the reporting phase, which removes it
+    kept = tempfile.mkdtemp(dir=OUT_DIR, prefix="gta_eval_")
+    shutil.move(eval_base, kept)
     shutil.rmtree(root)
     seconds_phase = time.perf_counter() - t_phase
     log(f"GTA training phase: {seconds_phase:.1f} s; K1-K3 launches "
@@ -5728,7 +5830,7 @@ def gta_training_path(card: str) -> dict:
         k: v / (GTA_RAW_IMAGES if k == "gta" else CS_RAW_IMAGES)
         for k, v in seconds.items()}, "runs": runs, "steps": steps,
         "checks": checks, "test_2d": test_runs, "tasks": task_s,
-        "seconds": seconds_phase}
+        "seconds": seconds_phase, "eval_tree": os.path.join(kept, "eval")}
 
 
 def f2_training_step(card: str) -> dict:
@@ -5770,6 +5872,195 @@ def f2_training_step(card: str) -> dict:
     if not np.isfinite(losses["bf16"]) or rel > 1e-2:
         raise AssertionError(f"F2 step: losses {losses}")
     return {"losses": losses, "rel": rel, "launches": launches}
+
+
+# -- reporting: the results table and the bar plots --------------------------
+
+EVAL_CONFIG_DIR = os.path.join(REPO, "configs", "evaluation")
+# the results tree's cut, as al_path and the GTA phase evaluated it: one
+# shift, one seed, their models; "~ds_tasks.<task>" drops a task the phase
+# wrote no file for
+REPORT_LIDC_MODELS = ("Softmax", "Ensemble")
+REPORT_LIDC = ["split_param.split_values=[texture]",
+               "LIDC.iter_params.shift=[texture]",
+               "LIDC.iter_params.seed=['123']"]
+REPORTING_MODULES = ("pandas", "matplotlib", "seaborn")
+
+
+def report_cell_errors(cfg: dict, mean) -> float:
+    """Every mean cell of the table against the mean (x 100) over the
+    seeds of the task JSON values it reads, read here again; NaN where a
+    value is NaN (R3) and in al_improvement's aleatoric rows. Raises on a
+    NaN in another place; returns the largest difference."""
+    experiment = cfg["experiments"][0]
+    models = experiment["iter_params"]["pred_model"]
+    split_name = (cfg.get("split_param") or {}).get("name")
+    names = [n if isinstance(n, str) else n[1] for n in mean.index_names]
+    scalars = {k: v for k, v in experiment.items()
+               if not isinstance(v, (dict, list))}
+    worst = 0.0
+    for r, row in enumerate(mean.index):
+        labels = dict(zip(names, row))
+        model = labels["pred_model"]
+        if model == "Dropout" and "Dropout-Final" in models:
+            model = "Dropout-Final"
+        scheme = experiment["prediction_models"][model][
+            "naming_scheme_version"]
+        fmt = dict(scalars, **({split_name: labels[split_name]}
+                               if split_name else {}))
+        for c, (task, column) in enumerate(mean.columns):
+            metric, _, split = column.partition(" ")
+            probs = cfg["ds_tasks"][task][metric]
+            levels = len(probs["levels"])
+            values = []
+            for seed in experiment["iter_params"]["seed"]:
+                path = os.path.join(cfg["base_path"], model, "test_results",
+                                    scheme.format(**dict(fmt, seed=seed)),
+                                    split, probs["metrics_file_name"])
+                with open(path) as f:
+                    node = json.load(f)["mean"]
+                if metric == "al_improvement" and \
+                        labels["unc_type"] == "aleatoric_uncertainty":
+                    values.append(float("nan"))
+                    continue
+                for level in ("unc_type", "aggregation")[:levels - 1]:
+                    node = node[labels[level]]
+                values.append(node.get("metrics", node)[probs["metrics_key"]])
+            want = float(np.mean(values)) * 100
+            got = float(mean.values[r, c])
+            if np.isnan(want) != np.isnan(got):
+                raise AssertionError(f"table cell {row} {column}: {got}, "
+                                     f"the JSONs' mean {want}")
+            if not np.isnan(want):
+                worst = max(worst, abs(got - want))
+    if not worst <= 1e-12:
+        raise AssertionError(f"table cells off the JSONs' means by {worst}")
+    return worst
+
+
+def report_table(config_name: str, overrides: list, label: str) -> dict:
+    """The table CLI on ``config_name`` with ``overrides``: its text, the
+    same table built here (its text equal to the CLI's), every mean cell
+    against the JSONs (``report_cell_errors``); the LaTeX goes to
+    build/chip_smoke/report_<label>.tex."""
+    import io
+    from values_tpu_torch.config import compose
+    from values_tpu_torch.evaluation.visualization import ds_task_table
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        ds_task_table.main(["-cd", EVAL_CONFIG_DIR, "-cn", config_name,
+                            *overrides])
+    seconds = time.perf_counter() - t0
+    cfg = compose(EVAL_CONFIG_DIR, config_name, overrides).to_container()
+    table = ds_task_table.DsTaskTable(cfg)
+    mean, std = table.create()
+    with contextlib.redirect_stdout(io.StringIO()):
+        text = table.to_latex(mean, std)
+    if printed.getvalue() != text + "\n":
+        raise AssertionError(f"{label}: the CLI printed another table")
+    with open(os.path.join(OUT_DIR, f"report_{label}.tex"), "w") as f:
+        f.write(text)
+    return {"seconds": seconds, "rows": len(mean.index),
+            "columns": len(mean.columns), "max_err": report_cell_errors(
+                cfg, mean), "nan_cells": int(np.isnan(mean.values).sum()),
+            "grey_cells": text.count(r"{\cellcolor[HTML]{D3D3D3}}"),
+            "models": sorted(set(mean.level(mean.index_names[
+                1 if cfg.get("split_param") else 0]))),
+            "std_nan": bool(np.isnan(std.values).all())}
+
+
+def report_plots(overrides: list) -> dict:
+    """run_plots on plot_config with ``overrides``: every SVG parses and
+    holds one bar per (group, dataset)."""
+    import xml.etree.ElementTree as ET
+    from values_tpu_torch.config import compose
+    from values_tpu_torch.evaluation.visualization import ds_task_barplots
+    cfg = compose(EVAL_CONFIG_DIR, "plot_config", overrides).to_container()
+    t0 = time.perf_counter()
+    paths = ds_task_barplots.run_plots(cfg)
+    seconds = time.perf_counter() - t0
+    bars = 0
+    for path in paths:
+        rects = [(e.get("data-group"), e.get("data-dataset"))
+                 for e in ET.parse(path).getroot().iter(
+                     "{http://www.w3.org/2000/svg}rect")
+                 if e.get("class") == "bar"]
+        groups = {g for g, _ in rects}
+        datasets = {d for _, d in rects}
+        if not rects or len(rects) != len(set(rects)) or \
+                len(rects) != len(groups) * len(datasets):
+            raise AssertionError(f"{path}: bars {rects}")
+        bars += len(rects)
+    return {"seconds": seconds, "plots": len(paths), "bars": bars,
+            "files": sorted(os.path.relpath(p, cfg["save_path"])
+                            for p in paths)}
+
+
+def reporting_path(card: str, first_cycle: str, gta_eval: str) -> dict:
+    """The reporting layer over the trees the AL and GTA phases wrote: the
+    table CLI on table_config_lidc (Softmax and Ensemble without
+    active_learning, for which only the Ensemble has a file; the Ensemble
+    alone with every task, al_improvement's aleatoric rows empty), run_plots
+    on plot_config and the table CLI on table_config_gta (every model of
+    the GTA phase, without active_learning), each cut to what its phase
+    evaluated (texture, seed 123: one seed, so every std is NaN); every
+    mean cell against the JSONs, every SVG's bars, no pandas, matplotlib or
+    seaborn imported, no launch of K1-K3. Removes both trees."""
+    t_phase = time.perf_counter()
+    reset_launches()
+    lidc = [f"base_path={first_cycle}"] + REPORT_LIDC
+    out = {"tables": {
+        "LIDC, Softmax and Ensemble": report_table(
+            "table_config_lidc", lidc + [
+                f"LIDC.iter_params.pred_model=[{', '.join(REPORT_LIDC_MODELS)}]",
+                "~ds_tasks.active_learning"], "lidc"),
+        "LIDC, Ensemble, every task": report_table(
+            "table_config_lidc", lidc + [
+                "LIDC.iter_params.pred_model=[Ensemble]"], "lidc_ensemble"),
+        "GTA": report_table(
+            "table_config_gta", [f"base_path={gta_eval}",
+                                 "GTA.iter_params.seed=['123']",
+                                 "~ds_tasks.active_learning"], "gta")}}
+    save = tempfile.mkdtemp(dir=OUT_DIR, prefix="plots_")
+    out["plots"] = report_plots(
+        [f"datasets.LIDC.base_path={first_cycle}", f"save_path={save}"]
+        + [f"datasets.LIDC.{o}" if o.startswith("split_param") else o
+           for o in REPORT_LIDC]
+        + [f"LIDC.iter_params.pred_model=[{', '.join(REPORT_LIDC_MODELS)}]",
+           "~datasets.LIDC.ds_tasks.active_learning"])
+    gta = out["tables"]["GTA"]
+    if "Dropout" not in gta["models"] or "Dropout-Final" in gta["models"]:
+        raise AssertionError(f"GTA table: models {gta['models']}")
+    # al_improvement leaves the aleatoric rows empty; such a cell is grey
+    # unless its column's other cells are all equal (the Styler's
+    # Normalize then maps the whole column, NaN included, to 0)
+    if not out["tables"]["LIDC, Ensemble, every task"]["nan_cells"]:
+        raise AssertionError("the Ensemble's table has no empty cell")
+    imported = sorted(m for m in sys.modules
+                      if m.split(".")[0] in REPORTING_MODULES)
+    if imported:
+        raise AssertionError(f"the reporting phase imported {imported}")
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the reporting phase launched {launches}")
+    for tree in (os.path.dirname(first_cycle), os.path.dirname(gta_eval),
+                 save):
+        shutil.rmtree(tree)
+    out["seconds"] = time.perf_counter() - t_phase
+    log("reporting (host only; LIDC: texture, seed 123, one seed so every "
+        "std is NaN; GTA: seed 123, the phase's 5 models): " + "; ".join(
+            f"table {n}: {t['rows']} rows x {t['columns']} columns, models "
+            f"{t['models']}, {t['nan_cells']} NaN means, {t['grey_cells']} "
+            f"grey cells, cells within {t['max_err']:.1e} of the JSONs' "
+            f"means, CLI {t['seconds']:.3f} s" for n, t in out[
+                "tables"].items())
+        + f"; run_plots on plot_config: {out['plots']['plots']} SVGs, "
+        f"{out['plots']['bars']} bars, {out['plots']['seconds']:.3f} s; "
+        "Dropout-Final shown as Dropout; none of pandas, matplotlib, "
+        f"seaborn imported; K1-K3 launches {json.dumps(launches)} (none "
+        f"expected); the phase {out['seconds']:.1f} s; card {card}")
+    return out
 
 
 # -- data parallelism over torch.distributed ----------------------------------
@@ -6300,7 +6591,9 @@ def main() -> int:
                          f"operations needed, SFU floor (computed) "
                          f"{mufu}")
             if "probs_ms" in k:
-                extra = (f"; {k['probs_shape']}: {k['probs_ms']:.3f} ms, "
+                extra = (f"; {k['probs_shape']}: {k['probs_ms']:.3f} ms "
+                         f"(device time, 10 calls queued: "
+                         f"{k['probs_queued_ms']:.4f} ms), "
                          f"bound {k['probs_bound_ms']:.3f} ms "
                          f"({k['probs_bound_by']}), plain "
                          f"{k['probs_plain_ms']:.3f} ms")
@@ -6339,6 +6632,9 @@ def main() -> int:
                 extra += f"; other paths' launches {json.dumps(k['path_launches'])}"
             library = ("none" if k["library_ms"] is None
                        else f"{k['library_ms']:.3f} ms")
+            if "queued_ms" in k:
+                extra = (f"; device time (10 calls queued behind a spin "
+                         f"kernel) {k['queued_ms']:.4f} ms" + extra)
             log(f"{k['name']} [{k['shape']}]: {k['ms']:.3f} ms, bound "
                 f"{k['bound_ms']:.3f} ms ({k['bound_by']}), plain "
                 f"{k['plain_ms']:.3f} ms, library {library}"
@@ -6388,6 +6684,8 @@ def main() -> int:
         twod = twod_path(smi)
     with phase("GTA training path", smi):
         gta = gta_training_path(smi)
+    with phase("reporting", smi):
+        reporting_path(smi, al["first_cycle"], gta["eval_tree"])
     with phase("data parallel", smi):
         dp = data_parallel_path(smi)
         for r, launches in enumerate(dp["launches"]):

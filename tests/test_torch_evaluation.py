@@ -617,8 +617,8 @@ def test_gta_targets_raise_naming_2d(tmp_path):
     ``values_tpu.evaluation.gta`` and ``evaluation.utils.gta`` name the
     port's loaders, whose predictions (read from a PNG the port writes)
     equal the JAX ones and whose GT uncertainty is the JAX one in (H, W)
-    (R13); the visualization still raises naming "Evaluation,
-    reporting"."""
+    (R13); the visualization targets, the JAX package's and the
+    reference's, resolve to the port's reporting layer."""
     import values_tpu.evaluation.gta as J_GTA
     from tests.test_2d_path import make_gta_tree
     from values_tpu_torch.core.image_io import write_png_rgb
@@ -681,12 +681,16 @@ def test_gta_targets_raise_naming_2d(tmp_path):
                    "values_tpu.evaluation.gta.pred_seg_loading",
                    "evaluation.utils.gta.pred_seg_loading"):
         assert locate(target).__module__ == "values_tpu_torch.evaluation.gta"
-    for target in ("values_tpu.evaluation.visualization.ds_task_table.main",
-                   "values_tpu.evaluation.visualization.ds_task_barplots."
-                   "main"):
-        with pytest.raises(NotImplementedError,
-                           match="'Evaluation, reporting'"):
-            locate(target)
+    from values_tpu_torch.evaluation.visualization import (
+        ds_task_barplots, ds_task_table)
+    for target, want in (
+            ("values_tpu.evaluation.visualization.ds_task_table.main",
+             ds_task_table.main),
+            ("values_tpu.evaluation.visualization.ds_task_barplots.main",
+             ds_task_barplots.main),
+            ("evaluation.visualization.ds_task_table.DsTaskTable",
+             ds_task_table.DsTaskTable)):
+        assert locate(target) is want
 
 
 @pytest.mark.parametrize("target", [

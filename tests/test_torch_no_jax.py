@@ -1,7 +1,8 @@
 """The port stands alone: no module of values_tpu_torch, nor chip_smoke
 or the port's probe script, imports jax or the JAX package (nor yaml, until a config is composed),
-nor cv2, PIL, scikit-learn or pandas, which the card's machine lacks; and
-its entry points refuse to run on the CPU unless asked to."""
+nor cv2, PIL, scikit-learn, pandas, matplotlib or seaborn, which the
+card's machine lacks; and its entry points refuse to run on the CPU
+unless asked to."""
 import ast
 import os
 import pathlib
@@ -29,12 +30,13 @@ def _module_names():
 
 def test_every_module_imports_with_jax_blocked():
     """Each module imports in a fresh interpreter where ``import jax``,
-    ``import yaml``, ``import cv2``, ``import PIL``, ``import sklearn``
-    and ``import pandas`` fail; chip_smoke is imported, not run."""
+    ``import yaml``, ``import cv2``, ``import PIL``, ``import sklearn``,
+    ``import pandas``, ``import matplotlib`` and ``import seaborn`` fail;
+    chip_smoke is imported, not run."""
     code = ("import sys, importlib\n"
             "assert 'jax' not in sys.modules\n"
             "for blocked in ('jax', 'yaml', 'cv2', 'PIL', 'sklearn',"
-            " 'pandas'):\n"
+            " 'pandas', 'matplotlib', 'seaborn'):\n"
             "    sys.modules[blocked] = None\n"
             f"for name in {_module_names()!r}:\n"
             "    importlib.import_module(name)\n"
@@ -87,7 +89,8 @@ def test_no_jax_or_values_tpu_import(path):
     for name in _imported_roots(path):
         root = name.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "values_tpu", "cv2",
-                            "PIL", "sklearn", "pandas"), (
+                            "PIL", "sklearn", "pandas", "matplotlib",
+                            "seaborn"), (
             f"{path.name} imports {name}")
 
 

@@ -5,13 +5,12 @@ checkpoints name their targets by the reference's import paths or by the
 JAX package's (``configs/*.yaml``), so :data:`TARGET_ALIASES` maps both
 onto their ``values_tpu_torch`` counterparts. The port never imports the
 JAX package: a ``values_tpu.*`` or reference target with no counterpart
-yet raises ``NotImplementedError`` naming the ROADMAP.md item that ports
-it. :data:`PREFIX_ALIASES` maps whole modules: every
-``values_tpu.evaluation.*`` target, and the reference's evaluation
-targets (GTA's loaders, ``evaluation.utils.gta``, included), onto
-``values_tpu_torch.evaluation.*``, but the visualization ("Evaluation,
-reporting"); a name that module does not hold raises
-``NotImplementedError`` too.
+raises ``NotImplementedError``. :data:`PREFIX_ALIASES` maps whole
+modules: every ``values_tpu.evaluation.*`` target, and the reference's
+evaluation targets (GTA's loaders, ``evaluation.utils.gta``, and the
+reporting layer, ``evaluation.visualization``, included), onto
+``values_tpu_torch.evaluation.*``; a name that module does not hold
+raises ``NotImplementedError`` too.
 """
 from __future__ import annotations
 
@@ -71,23 +70,17 @@ PREFIX_ALIASES: Dict[str, str] = {
     "evaluation.uncertainty_aggregation.": f"{_EVAL}.",
     "evaluation.metrics.": f"{_EVAL}.metrics.",
     "evaluation.utils.gta.": f"{_EVAL}.gta.",
+    "evaluation.visualization.": f"{_EVAL}.visualization.",
     "evaluation.split_file_generation.split_files_second_cycle.":
         f"{_EVAL}.split_file_generation.second_cycle.",
     "evaluation.split_file_generation.split_files_second_cycle_random.":
         f"{_EVAL}.split_file_generation.second_cycle_random.",
 }
 
-# module prefixes whose targets are not ported yet -> the ROADMAP.md item
-NOT_PORTED_PREFIXES: Dict[str, str] = {
-    "values_tpu.evaluation.visualization.": "Evaluation, reporting",
-    "evaluation.visualization.": "Evaluation, reporting",
-}
 
-
-def _not_ported(path: str, item) -> NotImplementedError:
-    return NotImplementedError(
-        f"{path} has no counterpart in values_tpu_torch yet (ROADMAP.md, "
-        f"Queue 1{f': {item!r}' if item else ''})")
+def _not_ported(path: str) -> NotImplementedError:
+    return NotImplementedError(f"{path} has no counterpart in "
+                               "values_tpu_torch")
 
 
 def _import(path: str) -> Any:
@@ -112,17 +105,15 @@ def locate(path: str) -> Any:
     :data:`PREFIX_ALIASES`; raise ``NotImplementedError`` for a target the
     port has no counterpart of."""
     path = TARGET_ALIASES.get(path, path)
-    item = next((item for prefix, item in NOT_PORTED_PREFIXES.items()
-                 if path.startswith(prefix)), None)
     prefix = next((p for p in PREFIX_ALIASES if path.startswith(p)), None)
-    if item is None and prefix is not None:
+    if prefix is not None:
         obj = _import(PREFIX_ALIASES[prefix] + path[len(prefix):])
         if obj is None:
-            raise _not_ported(path, None)
+            raise _not_ported(path)
         return obj
-    if item or path.startswith(("values_tpu.", "uncertainty_modeling.",
-                                "evaluation.")):
-        raise _not_ported(path, item)
+    if path.startswith(("values_tpu.", "uncertainty_modeling.",
+                        "evaluation.")):
+        raise _not_ported(path)
     obj = _import(path)
     if obj is None:
         raise ImportError(f"Could not locate '{path}'")

@@ -115,6 +115,10 @@ def transpose_conv_k2s2(x: torch.Tensor, kernel: torch.Tensor
     k = kernel.permute(0, 4, 1, 2, 3, 5).reshape(m, cin, 8 * cout)
     y = torch.bmm(xm, k.to(x.dtype))                      # (M, N, 8*Cout)
     y = y.reshape(m, b, d, h, w, 2, 2, 2, cout)
+    # the interleave: this reshape copies the permuted GEMM output once
+    # (aten::clone of the 9-D view), as the JAX packed forward's step (3)
+    # transpose does (values_tpu/models/ensemble_unet3d_pallas.py::
+    # _transpose_conv_k2s2)
     return y.permute(1, 2, 5, 3, 6, 4, 7, 0, 8).reshape(
         b, 2 * d, 2 * h, 2 * w, m * cout)
 
