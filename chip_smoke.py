@@ -5111,13 +5111,12 @@ def twod_path(card: str) -> dict:
         hw = GTA_FULL_HW if family == "sliding" else GTA_HW
         check_2d_tree(tester.save_dir, family, ids, hw)
         runs[f"{family} {dtype} {split}"] = {
-            "seconds": seconds, "write_s": tester.write_seconds,
+            "seconds": seconds,
             "images": len(ids), "samples": GTA_SAMPLES[family],
             "dice": tester.results_dict["mean"]["metrics"]["dice"]}
         log(f"test_2d {family} {dtype} over {split}: {len(ids)} images, S = "
             f"{GTA_SAMPLES[family]}, {seconds:.2f} s ({seconds / len(ids):.3f}"
-            f" s an image), PNG/TIF writes {tester.write_seconds:.2f} s "
-            f"({tester.write_seconds / seconds:.1%}); mean Dice "
+            f" s an image); mean Dice "
             f"{runs[f'{family} {dtype} {split}']['dice']:.4f}; tree checked;"
             f" card {card}")
         del tester
@@ -6741,7 +6740,7 @@ def main() -> int:
             f"images/s, {r['tflops']:.1f} TFLOP/s, peak {r['peak_gb']:.2f} GB"
             for n, r in twod["forward"].items())
         + "; test_2d seconds " + ", ".join(
-            f"{n} {r['seconds']:.2f} (writes {r['write_s'] / r['seconds']:.0%})"
+            f"{n} {r['seconds']:.2f}"
             for n, r in twod["runs"].items())
         + f"; sliding window {twod['sliding_s']:.3f} s per "
         f"{GTA_FULL_HW[0]}x{GTA_FULL_HW[1]} image; the phase "

@@ -44,6 +44,7 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..core import tracing
 from ..core.device import resolve_device
 from ..core.io import load_json, save_json
 from ..core.seed import make_generator, set_seed
@@ -222,22 +223,27 @@ def run_score(args) -> Dict[str, Dict[str, float]]:
     paths = sorted(by_image)
     results: Dict[str, Dict[str, float]] = {}
     for i in range(0, len(paths), args.batch_size):
-        chunk = paths[i:i + args.batch_size]
-        vols = np.stack([np.load(p).astype(np.float32) for p in chunk])
-        # all raters: the dice row is the reference's mean over raters
-        gt = np.stack([np.stack([np.load(lp) for lp in
-                                 by_image[p][0]["label_paths"]])
-                       for p in chunk])
-        if gt.dtype.kind not in "iu":
-            gt = gt.astype(np.int32)
-        batch_seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
-        out = score(weights, torch.from_numpy(vols[..., None]).to(device),
-                    torch.from_numpy(gt).to(device), batch_seed)
-        out = out.cpu().numpy()
-        for j, p in enumerate(chunk):
-            subject = os.path.basename(p).rsplit(".", 1)[0]
-            results[subject] = {r: float(out[k, j])
-                                for k, r in enumerate(rows)}
+        with tracing.span("score.batch"):
+            chunk = paths[i:i + args.batch_size]
+            vols = np.stack([np.load(p).astype(np.float32) for p in chunk])
+            # all raters: the dice row is the reference's mean over raters
+            gt = np.stack([np.stack([np.load(lp) for lp in
+                                     by_image[p][0]["label_paths"]])
+                           for p in chunk])
+            if gt.dtype.kind not in "iu":
+                gt = gt.astype(np.int32)
+            batch_seed = int(torch.randint(0, 2 ** 31 - 1, (),
+                                           generator=gen))
+            out = score(weights,
+                        tracing.to_device(torch.from_numpy(vols[..., None]),
+                                          device),
+                        tracing.to_device(torch.from_numpy(gt), device),
+                        batch_seed)
+            out = tracing.to_host(out).numpy()
+            for j, p in enumerate(chunk):
+                subject = os.path.basename(p).rsplit(".", 1)[0]
+                results[subject] = {r: float(out[k, j])
+                                    for k, r in enumerate(rows)}
     if mesh is None or mesh.rank == 0:
         save_json(results, args.out)
         print(f"wrote {len(results)} volumes x {len(rows)} scores -> "
@@ -251,7 +257,8 @@ def main(argv=None) -> None:
     if ranks > 1 and not launched():
         spawn(run_score, (args,), ranks)
     else:
-        run_score(args)
+        with tracing.profiled():
+            run_score(args)
 
 
 if __name__ == "__main__":

@@ -37,6 +37,7 @@ from typing import (Callable, List, Mapping, Optional, Sequence, Tuple,
 import torch
 
 from ..core.device import resolve_device
+from ..core.tracing import span
 from ..models.ensemble_unet3d import (PATCH_MULTIPLE, cast_weights,
                                       dropout_forward, grouped_forward_fused,
                                       member_heads, tta_inputs)
@@ -157,15 +158,19 @@ def make_scorer(members: int, patch: int, *, agg_patch: int = 10,
     device = _scorer_device(patch, agg_patch, device)
 
     def score(grouped_weights, volumes, gt) -> torch.Tensor:
-        volumes, gt = _batch(volumes, gt, patch, device)
-        weights = cast_weights(grouped_weights, dtype, device)
-        with torch.no_grad():
-            logits = grouped_forward_fused(weights, volumes.to(dtype),
-                                           members)
-            stats = ensemble_statistics(logits)
-            return score_from_statistics(stats, gt, agg_patch=agg_patch,
-                                         threshold=threshold,
-                                         ignore_index=ignore_index)
+        with span("score"), torch.no_grad():
+            with span("score.cast"):
+                volumes, gt = _batch(volumes, gt, patch, device)
+                weights = cast_weights(grouped_weights, dtype, device)
+                x = volumes.to(dtype)
+            with span("score.forward"):
+                logits = grouped_forward_fused(weights, x, members)
+            with span("score.c2"):
+                stats = ensemble_statistics(logits)
+            with span("score.c3"):
+                return score_from_statistics(
+                    stats, gt, agg_patch=agg_patch, threshold=threshold,
+                    ignore_index=ignore_index)
 
     return score, score_rows()
 
@@ -206,25 +211,31 @@ def make_aleatoric_scorer(members: int, patch: int, *,
     n = int(n_aleatoric_samples)
 
     def score(grouped_weights, volumes, gt, seed: int) -> torch.Tensor:
-        volumes, gt = _batch(volumes, gt, patch, device)
-        if "final_aleatoric" not in grouped_weights:
-            raise ValueError("the aleatoric scorer needs weights with a "
-                             "'final_aleatoric' head")
-        weights = cast_weights(grouped_weights, dtype, device)
-        with torch.no_grad():
-            out = grouped_forward_fused(weights, volumes.to(dtype), members)
-            # (B, D, H, W, M, 2C): the first C channels are mu, the last s;
-            # K3 reads both in the forward's type and forms sigma itself
-            c = out.shape[-1] // 2
-            head = out.reshape(-1, members, 2 * c)
-            carry = sampled_softmax_stats(
-                head[..., :c], None, seed, log_var=head[..., c:],
-                n_samples=n, bits=bits, spatial=(patch,) * 3,
-                counter_rows=counter_rows)
-            stats = streaming_finalize(carry, members * n)
-            return score_from_statistics(stats, gt, agg_patch=agg_patch,
-                                         threshold=threshold,
-                                         ignore_index=ignore_index)
+        with span("score"), torch.no_grad():
+            with span("score.cast"):
+                volumes, gt = _batch(volumes, gt, patch, device)
+                if "final_aleatoric" not in grouped_weights:
+                    raise ValueError("the aleatoric scorer needs weights "
+                                     "with a 'final_aleatoric' head")
+                weights = cast_weights(grouped_weights, dtype, device)
+                x = volumes.to(dtype)
+            with span("score.forward"):
+                out = grouped_forward_fused(weights, x, members)
+            with span("score.c2"):
+                # (B, D, H, W, M, 2C): the first C channels are mu, the
+                # last s; K3 reads both in the forward's type and forms
+                # sigma itself
+                c = out.shape[-1] // 2
+                head = out.reshape(-1, members, 2 * c)
+                carry = sampled_softmax_stats(
+                    head[..., :c], None, seed, log_var=head[..., c:],
+                    n_samples=n, bits=bits, spatial=(patch,) * 3,
+                    counter_rows=counter_rows)
+                stats = streaming_finalize(carry, members * n)
+            with span("score.c3"):
+                return score_from_statistics(
+                    stats, gt, agg_patch=agg_patch, threshold=threshold,
+                    ignore_index=ignore_index)
 
     return score, score_rows()
 
@@ -265,22 +276,27 @@ def make_dropout_scorer(members: int, patch: int, *, n_pred: int,
               ignore_index=ignore_index)
 
     def score(grouped_weights, volumes, gt, seed: int) -> torch.Tensor:
-        volumes, gt = _batch(volumes, gt, patch, device)
-        if "final" not in grouped_weights:
-            raise ValueError(
-                "the MC-dropout scorer needs weights with a 'final' head; "
-                "an aleatoric-head ensemble goes to make_aleatoric_scorer")
-        weights = cast_weights(grouped_weights, dtype, device)
-        gen = _generator(device, seed)
-        x = volumes.to(dtype)
-        with torch.no_grad():
+        with span("score"), torch.no_grad():
+            with span("score.cast"):
+                volumes, gt = _batch(volumes, gt, patch, device)
+                if "final" not in grouped_weights:
+                    raise ValueError(
+                        "the MC-dropout scorer needs weights with a 'final' "
+                        "head; an aleatoric-head ensemble goes to "
+                        "make_aleatoric_scorer")
+                weights = cast_weights(grouped_weights, dtype, device)
+                gen = _generator(device, seed)
+                x = volumes.to(dtype)
             carry = None
             for _ in range(n_pred):
-                logits = dropout_forward(weights, x, members, gen)
-                carry = streaming_update(
-                    carry, torch.softmax(logits.float(), dim=-1),
-                    grouped=True)
-            return score_from_carry(carry, members * n_pred, gt, **kw)
+                with span("score.forward"):
+                    logits = dropout_forward(weights, x, members, gen)
+                with span("score.c2"):
+                    carry = streaming_update(
+                        carry, torch.softmax(logits.float(), dim=-1),
+                        grouped=True)
+            with span("score.c3"):
+                return score_from_carry(carry, members * n_pred, gt, **kw)
 
     return score, score_rows()
 
@@ -307,20 +323,25 @@ def make_tta_scorer(members: int, patch: int, *, do_dropout: bool = False,
               ignore_index=ignore_index)
 
     def score(grouped_weights, volumes, gt, seed: int) -> torch.Tensor:
-        volumes, gt = _batch(volumes, gt, patch, device)
-        weights = cast_weights(grouped_weights, dtype, device)
-        gen = _generator(device, seed)
-        with torch.no_grad():
+        with span("score"), torch.no_grad():
+            with span("score.cast"):
+                volumes, gt = _batch(volumes, gt, patch, device)
+                weights = cast_weights(grouped_weights, dtype, device)
+                gen = _generator(device, seed)
             carry = None
             for xv, axes in tta_inputs(volumes.to(torch.float32), gen):
-                xv = xv.to(dtype)
-                logits = (dropout_forward(weights, xv, members, gen)
-                          if do_dropout
-                          else grouped_forward_fused(weights, xv, members))
-                p = torch.softmax(logits.float(), dim=-1)
-                carry = streaming_update(
-                    carry, torch.flip(p, axes) if axes else p, grouped=True)
-            return score_from_carry(carry, members * 16, gt, **kw)
+                with span("score.forward"):
+                    xv = xv.to(dtype)
+                    logits = (dropout_forward(weights, xv, members, gen)
+                              if do_dropout else
+                              grouped_forward_fused(weights, xv, members))
+                with span("score.c2"):
+                    p = torch.softmax(logits.float(), dim=-1)
+                    carry = streaming_update(
+                        carry, torch.flip(p, axes) if axes else p,
+                        grouped=True)
+            with span("score.c3"):
+                return score_from_carry(carry, members * 16, gt, **kw)
 
     return score, score_rows()
 
@@ -350,32 +371,41 @@ def make_ssn_scorer(num_classes: int, members: int, patch: int, *,
               ignore_index=ignore_index)
 
     def score(grouped_weights, volumes, gt, seed: int) -> torch.Tensor:
-        volumes, gt = _batch(volumes, gt, patch, device)
-        missing = [h for h in SSN_HEADS if h not in grouped_weights]
-        if missing:
-            raise ValueError(f"the SSN scorer needs the SSN heads {missing}")
-        trunk = cast_weights({k: v for k, v in grouped_weights.items()
-                              if k not in SSN_HEADS}, dtype, device)
-        heads = cast_weights({k: grouped_weights[k] for k in SSN_HEADS},
-                             torch.float32, device)
-        gen = _generator(device, seed)
-        b = volumes.shape[0]
-        with torch.no_grad():
-            feats = grouped_forward_fused(trunk, volumes.to(dtype), members,
-                                          apply_final=False)
+        with span("score"), torch.no_grad():
+            with span("score.cast"):
+                volumes, gt = _batch(volumes, gt, patch, device)
+                missing = [h for h in SSN_HEADS if h not in grouped_weights]
+                if missing:
+                    raise ValueError(
+                        f"the SSN scorer needs the SSN heads {missing}")
+                trunk = cast_weights({k: v for k, v in
+                                      grouped_weights.items()
+                                      if k not in SSN_HEADS}, dtype, device)
+                heads = cast_weights({k: grouped_weights[k]
+                                      for k in SSN_HEADS},
+                                     torch.float32, device)
+                gen = _generator(device, seed)
+                x = volumes.to(dtype)
+            b = volumes.shape[0]
+            with span("score.forward"):
+                feats = grouped_forward_fused(trunk, x, members,
+                                              apply_final=False)
             carry = None
             for m in range(members):
-                dist = ssn_distribution(
-                    feats[..., m, :].float(),
-                    member_heads(heads, m, members, torch.float32),
-                    num_classes, rank, epsilon)
-                terms = dist.sampling_terms()
-                for _ in range(n_pred):
-                    logits = dist.rsample(gen, 1, terms)[0].reshape(
-                        (b, num_classes) + (patch,) * 3).movedim(1, -1)
-                    carry = streaming_update(carry,
-                                             torch.softmax(logits, dim=-1))
+                with span("score.forward"):
+                    dist = ssn_distribution(
+                        feats[..., m, :].float(),
+                        member_heads(heads, m, members, torch.float32),
+                        num_classes, rank, epsilon)
+                    terms = dist.sampling_terms()
+                with span("score.c2"):
+                    for _ in range(n_pred):
+                        logits = dist.rsample(gen, 1, terms)[0].reshape(
+                            (b, num_classes) + (patch,) * 3).movedim(1, -1)
+                        carry = streaming_update(
+                            carry, torch.softmax(logits, dim=-1))
                 del dist, terms   # free this member's factor before the next
-            return score_from_carry(carry, members * n_pred, gt, **kw)
+            with span("score.c3"):
+                return score_from_carry(carry, members * n_pred, gt, **kw)
 
     return score, score_rows()

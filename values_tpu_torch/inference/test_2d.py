@@ -46,13 +46,13 @@ from __future__ import annotations
 
 import json
 import os
-import time
 from typing import Dict, List
 
 import numpy as np
 import torch
 
 from ..config import instantiate, make_config
+from ..core import tracing
 from ..core.device import resolve_device
 from ..core.image_io import write_png_rgb, write_tiff_float32
 from ..core.seed import set_seed
@@ -110,8 +110,6 @@ class Tester2D:
                              "whole-image covariance)")
         self._sliding: Dict[int, SlidingPredictor2D] = {}
         self._colors = torch.from_numpy(_color_table()).to(self.device)
-        # seconds spent encoding and writing PNGs and TIFs
-        self.write_seconds = 0.0
 
         save_root = args.save_dir or hparams["save_dir"]
         exp_name = args.exp_name or hparams["exp_name"]
@@ -173,11 +171,13 @@ class Tester2D:
     def _to_device(self, images: np.ndarray) -> torch.Tensor:
         """(B, H, W, C) host images -> (B, C, H, W) on the device, in the
         run's type (channels-last memory on the card)."""
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-        x = x.permute(0, 3, 1, 2).to(self.dtype)
-        if self.device.type == "cuda":
-            return x.contiguous(memory_format=torch.channels_last)
-        return x.contiguous()
+        with tracing.span("test2d.to_device"):
+            x = tracing.to_device(
+                torch.from_numpy(np.ascontiguousarray(images)), self.device)
+            x = x.permute(0, 3, 1, 2).to(self.dtype)
+            if self.device.type == "cuda":
+                return x.contiguous(memory_format=torch.channels_last)
+            return x.contiguous()
 
     def _forward(self, model: HighResolutionNet,
                  x: torch.Tensor) -> torch.Tensor:
@@ -202,37 +202,44 @@ class Tester2D:
     @torch.inference_mode()
     def predict_cases(self) -> None:
         for batch in self.test_dataloader:
-            preds: List[torch.Tensor] = []
-            for model in self.models:
-                if self.is_ssn:
-                    x = self._to_device(batch["data"])
-                    dist = model(x)
-                    samples = dist.rsample(self.generator, self.n_pred)
-                    b, _, h, w = x.shape
-                    logits = samples.reshape(self.n_pred, b,
-                                             model.num_classes, h, w)
-                    preds.extend(torch.softmax(logits, dim=2))
-                elif self.tta:
-                    # B items x 4 variants; each variant runs as a batch
-                    # and hflip outputs are un-flipped (test_2D.py:296-311)
-                    per_item = batch["data"]
-                    for v, names in enumerate(batch["transforms"][0]):
-                        x = self._to_device(
-                            np.stack([item[v] for item in per_item]))
-                        out = self._forward(model, x)
-                        if "HorizontalFlip" in names:
-                            out = torch.flip(out, dims=(-1,))
-                        preds.append(out)
-                else:
-                    x = self._to_device(batch["data"])
-                    for _ in range(self.n_pred):
-                        preds.append(self._forward(model, x))
-            self.process_output({
-                "softmax_pred": torch.stack(preds),  # (S, B, C, H, W)
-                "image_id": batch["image_id"],
-                "gt": np.asarray(batch["seg"]),
-                "dataset": batch["dataset"],
-            }, is_ssn=self.is_ssn)
+            with tracing.span("test2d.batch"):
+                preds: List[torch.Tensor] = []
+                for model in self.models:
+                    if self.is_ssn:
+                        x = self._to_device(batch["data"])
+                        with tracing.span("test2d.forward"):
+                            dist = model(x)
+                            samples = dist.rsample(self.generator,
+                                                   self.n_pred)
+                            b, _, h, w = x.shape
+                            logits = samples.reshape(self.n_pred, b,
+                                                     model.num_classes, h, w)
+                            preds.extend(torch.softmax(logits, dim=2))
+                    elif self.tta:
+                        # B items x 4 variants; each variant runs as a
+                        # batch and hflip outputs are un-flipped
+                        # (test_2D.py:296-311)
+                        per_item = batch["data"]
+                        for v, names in enumerate(batch["transforms"][0]):
+                            x = self._to_device(
+                                np.stack([item[v] for item in per_item]))
+                            with tracing.span("test2d.forward"):
+                                out = self._forward(model, x)
+                                if "HorizontalFlip" in names:
+                                    out = torch.flip(out, dims=(-1,))
+                            preds.append(out)
+                    else:
+                        x = self._to_device(batch["data"])
+                        for _ in range(self.n_pred):
+                            with tracing.span("test2d.forward"):
+                                preds.append(self._forward(model, x))
+                with tracing.span("test2d.process_output"):
+                    self.process_output({
+                        "softmax_pred": torch.stack(preds),  # (S, B, C, H, W)
+                        "image_id": batch["image_id"],
+                        "gt": np.asarray(batch["seg"]),
+                        "dataset": batch["dataset"],
+                    }, is_ssn=self.is_ssn)
         self.save_results_dict()
 
     # ------------------------------------------------------------------
@@ -249,10 +256,12 @@ class Tester2D:
     def process_output(self, all_preds: Dict, is_ssn: bool) -> None:
         softmax = all_preds["softmax_pred"]
         s, b, c, h, w = softmax.shape
+        tracing.count("images", b)
         # extra channel so that the ignore index lies outside the classes
         softmax = torch.cat([softmax, softmax.new_zeros((s, b, 1, h, w))],
                             dim=2)
-        gt = torch.from_numpy(all_preds["gt"]).to(self.device)
+        gt = tracing.to_device(torch.from_numpy(all_preds["gt"]),
+                               self.device)
         if gt.ndim == 3:  # a single reference mask -> a rater axis
             gt = gt[:, None]
         ignore_index_map = gt == self.ignore_index
@@ -261,19 +270,23 @@ class Tester2D:
         for image_idx in range(b):
             image_preds = softmax[:, image_idx]  # (S, C+1, H, W)
             image_id = all_preds["image_id"][image_idx]
-            mean_softmax = torch.mean(image_preds, dim=0)
-            metrics = self.calculate_test_metrics(mean_softmax,
-                                                  gt[image_idx])
-            metrics.update(ops_metrics.generalized_energy_distance(
-                image_preds, gt[image_idx], ignore_index=c, ged_only=True))
-            self.results_dict[image_id] = {
-                "dataset": all_preds["dataset"][image_idx],
-                "metrics": {k: float(v) for k, v in metrics.items()}}
-            if s > 1:
-                unc = ops_uncertainty.uncertainty_measures(image_preds,
-                                                           ssn=is_ssn)
-            else:
-                unc = ops_uncertainty.one_minus_msr(image_preds[0])
+            with tracing.span("test2d.metrics"):
+                mean_softmax = torch.mean(image_preds, dim=0)
+                metrics = self.calculate_test_metrics(mean_softmax,
+                                                      gt[image_idx])
+                metrics.update(ops_metrics.generalized_energy_distance(
+                    image_preds, gt[image_idx], ignore_index=c,
+                    ged_only=True))
+                self.results_dict[image_id] = {
+                    "dataset": all_preds["dataset"][image_idx],
+                    "metrics": {k: tracing.item(v)
+                                for k, v in metrics.items()}}
+            with tracing.span("test2d.uncertainty"):
+                if s > 1:
+                    unc = ops_uncertainty.uncertainty_measures(image_preds,
+                                                               ssn=is_ssn)
+                else:
+                    unc = ops_uncertainty.one_minus_msr(image_preds[0])
             self.save_prediction(image_id, image_preds, mean_softmax,
                                  ignore_index_map[image_idx][0])
             self.save_uncertainty(image_id, unc)
@@ -282,32 +295,33 @@ class Tester2D:
     def save_prediction(self, image_id: str, image_preds: torch.Tensor,
                         mean_pred: torch.Tensor,
                         ignore_index_map: torch.Tensor) -> None:
-        multiple = image_preds.shape[0] > 1
-        stack = (torch.cat([mean_pred[None], image_preds]) if multiple
-                 else image_preds)
-        labels = torch.argmax(stack, dim=1)
-        labels[:, ignore_index_map] = cs_labels.name2trainId["unlabeled"]
-        colors = self._colors[labels].cpu().numpy()  # (K, H, W, 3) RGB
-        t0 = time.perf_counter()
-        for output_idx, color in enumerate(colors):
-            idx = output_idx if multiple else output_idx + 1
-            img_name = (f"{image_id}_mean" if idx == 0 and multiple
-                        else f"{image_id}_{idx:02d}")
-            write_png_rgb(os.path.join(self.save_pred_dir,
-                                       f"{img_name}.png"), color)
-        self.write_seconds += time.perf_counter() - t0
+        with tracing.span("test2d.save_prediction"):
+            multiple = image_preds.shape[0] > 1
+            stack = (torch.cat([mean_pred[None], image_preds]) if multiple
+                     else image_preds)
+            labels = torch.argmax(stack, dim=1)
+            labels[:, ignore_index_map] = cs_labels.name2trainId["unlabeled"]
+            # (K, H, W, 3) RGB
+            colors = tracing.to_host(self._colors[labels]).numpy()
+            with tracing.span("test2d.write"):
+                for output_idx, color in enumerate(colors):
+                    idx = output_idx if multiple else output_idx + 1
+                    img_name = (f"{image_id}_mean" if idx == 0 and multiple
+                                else f"{image_id}_{idx:02d}")
+                    write_png_rgb(os.path.join(self.save_pred_dir,
+                                               f"{img_name}.png"), color)
 
     def save_uncertainty(self, image_id: str,
                          uncertainty_dict: Dict[str, torch.Tensor]) -> None:
-        maps = {k: v.to(torch.float32).cpu().numpy()
-                for k, v in uncertainty_dict.items()}
-        t0 = time.perf_counter()
-        for unc_type, unc_map in maps.items():
-            unc_dir = os.path.join(self.save_dir, unc_type)
-            os.makedirs(unc_dir, exist_ok=True)
-            write_tiff_float32(os.path.join(unc_dir, f"{image_id}.tif"),
-                               unc_map)
-        self.write_seconds += time.perf_counter() - t0
+        with tracing.span("test2d.save_uncertainty"):
+            maps = {k: tracing.to_host(v.to(torch.float32)).numpy()
+                    for k, v in uncertainty_dict.items()}
+            with tracing.span("test2d.write"):
+                for unc_type, unc_map in maps.items():
+                    unc_dir = os.path.join(self.save_dir, unc_type)
+                    os.makedirs(unc_dir, exist_ok=True)
+                    write_tiff_float32(
+                        os.path.join(unc_dir, f"{image_id}.tif"), unc_map)
 
     def save_results_dict(self) -> None:
         mean_metrics: Dict[str, List[float]] = {}
@@ -328,7 +342,8 @@ def run_test(args) -> Tester2D:
 
 
 def main(argv=None) -> Tester2D:
-    return run_test(test_cli(argv, description=__doc__))
+    with tracing.profiled():
+        return run_test(test_cli(argv, description=__doc__))
 
 
 if __name__ == "__main__":

@@ -41,6 +41,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from ..config import instantiate, make_config
+from ..core import tracing
 from ..core.device import resolve_device
 from ..core.io import load_pickle
 from ..core.seed import set_seed
@@ -271,7 +272,8 @@ def run_test(args) -> VolumeCarrier:
 
 
 def main(argv=None) -> None:
-    run_test(test_cli(argv))
+    with tracing.profiled():
+        run_test(test_cli(argv))
 
 
 if __name__ == "__main__":

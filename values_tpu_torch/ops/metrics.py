@@ -15,6 +15,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..core import tracing
+
 
 def dice_stats(pred_labels: torch.Tensor, target_labels: torch.Tensor,
                ignore_index: Optional[int] = None,
@@ -126,8 +128,8 @@ def generalized_energy_distance(pred_softmax: torch.Tensor,
     # 0, and to d(gt, gt) only when it occurs (test_3D.py:303-319)
     dist_pred_pred = 1.0 - _pooled_dice(
         flat_pred, flat_pred, ignore_index if ignore_index == 0 else None)
-    gg_ignore = ignore_index if bool((flat_gt == ignore_index).any()) \
-        else None
+    gg_ignore = (ignore_index if tracing.item((flat_gt == ignore_index).any())
+                 else None)
     dist_gt_gt = 1.0 - _pooled_dice(flat_gt, flat_gt, gg_ignore)
     out = {"ged": 2.0 * dist_gt_pred - dist_pred_pred - dist_gt_gt}
     if m > 1 and not ged_only:

@@ -64,6 +64,7 @@ import torch
 
 from ..config import Config, instantiate
 from ..core.device import resolve_device
+from ..core.tracing import span
 from ..models.ensemble_unet3d import (PATCH_MULTIPLE, draw_keep_masks,
                                       eval_forward, single_member_tree,
                                       ssn_train_forward, train_forward)
@@ -388,22 +389,28 @@ class Experiment:
         ``reduce_grads(leaves)``: run on the gradients between the
         backward and clipping (the data-parallel step's average,
         :func:`~values_tpu_torch.parallel.mesh.make_parallel_train_step`)."""
-        state.optimizer.zero_grad(set_to_none=True)
-        if self.is_2d:
-            state.params.train()
-        loss = self.loss(state.params, batch, generator, pretrain)
-        loss.backward()
-        leaves = self.leaves(state)
-        for leaf in leaves:
-            if leaf.grad is None:  # unused this step: jax.grad gives 0
-                leaf.grad = torch.zeros_like(leaf)
-        if reduce_grads is not None:
-            reduce_grads(leaves)
-        if self.gradient_clip_val is not None:
-            optim.clip_grads_by_global_norm(leaves, self.gradient_clip_val)
-        state.optimizer.step()
-        state.step += 1
-        return state, loss.detach()
+        with span("train_step"):
+            state.optimizer.zero_grad(set_to_none=True)
+            if self.is_2d:
+                state.params.train()
+            with span("train_step.forward"):
+                loss = self.loss(state.params, batch, generator, pretrain)
+            with span("train_step.backward"):
+                loss.backward()
+            with span("train_step.optimizer"):
+                leaves = self.leaves(state)
+                for leaf in leaves:
+                    # unused this step: jax.grad gives 0
+                    if leaf.grad is None:
+                        leaf.grad = torch.zeros_like(leaf)
+                if reduce_grads is not None:
+                    reduce_grads(leaves)
+                if self.gradient_clip_val is not None:
+                    optim.clip_grads_by_global_norm(leaves,
+                                                    self.gradient_clip_val)
+                state.optimizer.step()
+            state.step += 1
+            return state, loss.detach()
 
     def eval_apply(self, params, data: torch.Tensor,
                    generator: Optional[torch.Generator] = None):

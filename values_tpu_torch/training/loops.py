@@ -37,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import Config, instantiate
+from ..core import tracing
 from ..core.device import resolve_device
 from ..core.seed import set_seed
 from ..parallel.mesh import (global_rank, initialize_distributed,
@@ -57,9 +58,11 @@ def data_parallel_ranks(cfg: Config, device) -> int:
 
 
 def _device_batch(batch: Dict, device: torch.device) -> Dict:
-    out = {"data": torch.from_numpy(np.asarray(batch["data"])).to(device)}
+    out = {"data": tracing.to_device(
+        torch.from_numpy(np.asarray(batch["data"])), device)}
     if "seg" in batch:
-        out["seg"] = torch.from_numpy(np.asarray(batch["seg"])).to(device)
+        out["seg"] = tracing.to_device(
+            torch.from_numpy(np.asarray(batch["seg"])), device)
     return out
 
 
@@ -81,9 +84,10 @@ def _log_val_image(logger, experiment, params, batch, step: int) -> None:
             out = out.mean.reshape((1, experiment.num_classes) + spatial)
         elif not experiment.is_2d:
             out = out.movedim(-1, 1)
-        pred = torch.argmax(out, dim=1)[0].cpu().numpy()
-        img = data[0].cpu().numpy()
-        seg = batch["seg"][0].cpu().numpy() if "seg" in batch else None
+        pred = tracing.to_host(torch.argmax(out, dim=1)[0]).numpy()
+        img = tracing.to_host(data[0]).numpy()
+        seg = (tracing.to_host(batch["seg"][0]).numpy() if "seg" in batch
+               else None)
         if experiment.is_2d:
             img2d, pred2d = img.mean(axis=-1), pred
             seg2d = seg if seg is not None and seg.ndim == 2 else (
@@ -250,7 +254,7 @@ def fit(cfg: Config, max_steps_override: Optional[int] = None,
                 f"epoch {epoch} ran zero steps: every batch was smaller "
                 f"than the {n_devices}-device mesh width (train set too "
                 "small for the configured batch_size/devices)")
-        train_loss = float(torch.stack(epoch_losses).float().mean())
+        train_loss = tracing.item(torch.stack(epoch_losses).float().mean())
         if is_main:
             logger.log_scalars(
                 {"training/train_loss": train_loss,
@@ -262,7 +266,7 @@ def fit(cfg: Config, max_steps_override: Optional[int] = None,
             batch = _device_batch(batch, device)
             out = experiment.val_step(state.params, batch, generator)
             for k, v in out.items():
-                val_metrics.setdefault(k, []).append(float(v))
+                val_metrics.setdefault(k, []).append(tracing.item(v))
             if i == 0 and is_main:
                 _log_val_image(logger, experiment, state.params, batch,
                                global_step)

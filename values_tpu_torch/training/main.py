@@ -41,6 +41,7 @@ import argparse
 from pathlib import Path
 
 from ..config import compose
+from ..core import tracing
 from ..parallel.launch import launched, spawn
 from .loops import data_parallel_ranks, fit
 
@@ -64,8 +65,9 @@ def main(argv=None) -> str:
     if ranks > 1 and not launched():
         return spawn(_train, (args.config_dir, args.config_name,
                               args.overrides, args.device), ranks)
-    return _train(args.config_dir, args.config_name, args.overrides,
-                  args.device, cfg)
+    with tracing.profiled():
+        return _train(args.config_dir, args.config_name, args.overrides,
+                      args.device, cfg)
 
 
 def _train(config_dir: str, config_name: str, overrides, device,
