@@ -40,7 +40,12 @@ bfloat16 and ``--sliding_window``, as the JAX tester does. On the card
 the convolutions run channels-last, and in float32 under cuDNN's TF32,
 PyTorch's default (``torch.backends.cudnn.allow_tf32``), as the
 reference's PyTorch code did; matrix products stay float32
-(``torch.backends.cuda.matmul.allow_tf32`` defaults off).
+(``torch.backends.cuda.matmul.allow_tf32`` defaults off). There a
+deterministic eval pass (softmax ensembles, ``--n_pred`` passes of a model
+without DROPOUT_FINAL, ``-tta``, either type) replays a CUDA graph of its
+model captured on its first batch (:class:`GraphedPass`), which takes the
+host's per-op dispatch off the path; MC dropout, the SSN and
+``--sliding_window`` run eagerly, as does every pass on the CPU.
 """
 from __future__ import annotations
 
@@ -73,6 +78,46 @@ def _color_table() -> np.ndarray:
         if 0 <= train_id < 256:
             table[train_id] = color
     return table
+
+
+class GraphedPass:
+    """A softmax pass captured as one CUDA graph on its first input and
+    replayed on every later input of the same shape, type and strides.
+
+    The capture follows PyTorch's recipe: a static input, eager warm-up
+    passes on a side stream (cuDNN picks its algorithms and workspaces),
+    then the capture on that stream into a private memory pool. It skips
+    the ``gc.collect`` and ``empty_cache`` that ``torch.cuda.graph`` runs
+    before each capture: they cost set-up time a member, and no memory
+    needs freeing first.
+    A replay copies the input in and returns a clone of the static
+    output, so that every pass's softmax is a tensor of its own that the
+    next replay cannot overwrite. The pass must not draw random numbers
+    or read back to the host."""
+
+    WARMUP = 2
+
+    @torch.inference_mode()
+    def __init__(self, fn, x: torch.Tensor):
+        self.static_in = torch.empty_like(x)
+        self.static_in.copy_(x)
+        side = torch.cuda.Stream(x.device)
+        side.wait_stream(torch.cuda.current_stream(x.device))
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):
+                fn(self.static_in)
+            self.graph.capture_begin()
+            try:
+                self.static_out = fn(self.static_in)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(x.device).wait_stream(side)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self.static_in.copy_(x)
+        self.graph.replay()
+        return self.static_out.clone()
 
 
 class Tester2D:
@@ -179,12 +224,44 @@ class Tester2D:
                 return x.contiguous(memory_format=torch.channels_last)
             return x.contiguous()
 
+    def _takes_graph(self, model: HighResolutionNet,
+                     device: torch.device) -> bool:
+        """Whether a pass replays a captured CUDA graph: a deterministic
+        eval pass over the whole image on the card. The CPU, MC dropout
+        and the SSN (which draw from the generator), the sliding window
+        and training run eagerly."""
+        return (device.type == "cuda" and not model.training
+                and not model.dropout_final and not model.ssn
+                and self.sliding_window is None)
+
+    def _softmax(self, model: HighResolutionNet,
+                 x: torch.Tensor) -> torch.Tensor:
+        """The eager softmax pass: float32 for a bfloat16 model, else the
+        model's type."""
+        logits = model(x, generator=self.generator)
+        if logits.dtype == torch.bfloat16:  # softmax/statistics stay f32
+            logits = logits.to(torch.float32)
+        return torch.softmax(logits, dim=1)
+
     def _forward(self, model: HighResolutionNet,
                  x: torch.Tensor) -> torch.Tensor:
         """One softmax pass over a batch, (B, C, H, W): float32 for a
         bfloat16 model, else the model's type. A DROPOUT_FINAL model draws
         its masks from the generator on every pass -- that IS the 2D MC
-        dropout."""
+        dropout. Where :meth:`_takes_graph` allows, the pass replays the
+        graph captured on the first batch of its model, shape, type and
+        strides (a smaller last batch gets its own)."""
+        tracing.count("forwards")
+        if self._takes_graph(model, x.device):
+            # made on first use, not in __init__: a subclass may replace it
+            graphs = self.__dict__.setdefault("_graphs", {})
+            key = (id(model), tuple(x.shape), x.dtype, x.stride())
+            graph = graphs.get(key)
+            if graph is None:
+                graph = graphs[key] = GraphedPass(
+                    lambda t: self._softmax(model, t), x)
+            tracing.count("graphed_forwards")
+            return graph(x)
         if self.sliding_window is not None:
             sp = self._sliding.get(id(model))
             if sp is None:
@@ -194,10 +271,7 @@ class Tester2D:
                 self._sliding[id(model)] = sp
             return torch.stack([sp(x[i], self.generator)
                                 for i in range(x.shape[0])])
-        logits = model(x, generator=self.generator)
-        if logits.dtype == torch.bfloat16:  # softmax/statistics stay f32
-            logits = logits.to(torch.float32)
-        return torch.softmax(logits, dim=1)
+        return self._softmax(model, x)
 
     @torch.inference_mode()
     def predict_cases(self) -> None:
@@ -208,6 +282,7 @@ class Tester2D:
                     if self.is_ssn:
                         x = self._to_device(batch["data"])
                         with tracing.span("test2d.forward"):
+                            tracing.count("forwards", self.n_pred)
                             dist = model(x)
                             samples = dist.rsample(self.generator,
                                                    self.n_pred)
