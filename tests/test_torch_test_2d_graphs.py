@@ -132,15 +132,17 @@ COUNTS = {
     "n_pred": ({}, 1, 2, 2, False, None),
     "tta": ({}, 1, 4, 1, True, None),
     "dropout_final": ({"dropout_final": True}, 1, 3, 3, False, None),
-    "ssn": ({"ssn": True}, 1, 2, 2, False, None),
+    # an SSN member: one trunk pass a batch, its samples drawn after it
+    "ssn": ({"ssn": True}, 1, 1, 2, False, None),
     "sliding window": ({}, 1, 2, 2, False, (16, 24)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(COUNTS))
 def test_counters_on_the_cpu(case, tmp_path):
-    """``forwards`` counts every softmax pass: members x passes x batches;
-    no pass on the CPU replays a graph."""
+    """``forwards`` counts every pass of a model: members x passes x
+    batches (an SSN member's samples are no passes); no pass on the CPU
+    replays a graph."""
     kw, members, passes, n_pred, tta, sliding = COUNTS[case]
     models = [_model(seed=m, **kw) for m in range(members)]
     tester = _tester(models, "cpu", tmp_path, n_pred=n_pred, tta=tta,

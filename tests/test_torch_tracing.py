@@ -250,6 +250,39 @@ def test_tester2d_spans_and_readbacks(tmp_path):
         assert ann["ts"] + ann["dur"] <= root["ts"] + root["dur"]
 
 
+def test_tester2d_ssn_spans_and_counters(tmp_path):
+    """SSN members: per member and batch one ``test2d.forward`` (the trunk
+    and the heads) and one ``test2d.ssn_sample`` (the degenerate check,
+    the draws, the low-rank product, the softmax); ``forwards`` counts
+    the trunk passes, ``ssn_samples`` the n_pred x B samples drawn."""
+    n_pred, batches = 3, 2
+    tester = _Tester(tmp_path, list(_image_batches(batches)))
+    cfg = _tiny_hrnet()
+    cfg["MODEL"].update(SSN=True, SSN_RANK=3, SSN_EPS=1e-5)
+    hparams = {"model": {"_target_": "values_tpu.models.hrnet.get_seg_model",
+                         "cfg": cfg}}
+    torch.manual_seed(1)
+    tester.models = [tester._load_model(hparams, instantiate(make_config(
+        dict(hparams["model"]))).state_dict()) for _ in range(S)]
+    tester.is_ssn, tester.n_pred = True, n_pred
+    _profiled(tester.predict_cases)
+    recs = tracing.records()
+    parents = dict(TEST2D, **{"test2d.ssn_sample": "test2d.batch"})
+    assert {r["name"] for r in recs} == set(parents)
+    _check_tree(recs, parents)
+    summary = tracing.summary()
+    for name in ("test2d.to_device", "test2d.forward", "test2d.ssn_sample"):
+        assert summary[name]["calls"] == S * batches
+    assert summary["test2d.ssn_sample"]["counters"] == {
+        "ssn_samples": S * batches * n_pred * B}
+    totals = tracing.totals()
+    assert totals["forwards"] == S * batches
+    assert totals["ssn_samples"] == S * batches * n_pred * B
+    assert totals["images"] == batches * B
+    assert "graphed_forwards" not in totals
+    assert len(tester.results_dict) == batches * B + 1
+
+
 def test_write_seconds_is_gone():
     assert not hasattr(test_2d.Tester2D, "write_seconds")
     assert "write_seconds" not in test_2d.Tester2D.__init__.__code__.co_names

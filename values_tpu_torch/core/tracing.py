@@ -2,13 +2,13 @@
 
 The port's only tracing module. ``span(name)`` marks one layer of a
 step: the scorer's cast, forward, C2 and C3, the training step's forward,
-backward and optimizer, the 2D tester's copies, forwards, per-image
-metrics and writes. ``count(name, n)`` counts the bytes copied each way
-(``h2d_bytes``, ``d2h_bytes``), the blocking device-to-host reads
-(``readbacks``) and the work done (``images``) at the sites that do
-them; :func:`to_device`, :func:`to_host` and :func:`item` copy or read
-and count together. A site counts on every device, so a CPU run counts
-what the card would copy and read.
+backward and optimizer, the 2D tester's copies, forwards, SSN sampling,
+per-image metrics and writes. ``count(name, n)`` counts the bytes copied
+each way (``h2d_bytes``, ``d2h_bytes``), the blocking device-to-host
+reads (``readbacks``) and the work done (``images``, ``ssn_samples``) at
+the sites that do them; :func:`to_device`, :func:`to_host` and
+:func:`item` copy or read and count together. A site counts on every
+device, so a CPU run counts what the card would copy and read.
 
 Spans and counters record only while a ``torch.profiler`` collects.
 Outside one, ``span`` is one flag check that returns a shared null

@@ -281,12 +281,16 @@ class Tester2D:
                 for model in self.models:
                     if self.is_ssn:
                         x = self._to_device(batch["data"])
+                        # one trunk pass gives the low-rank normal; its
+                        # n_pred samples are drawn after it
                         with tracing.span("test2d.forward"):
-                            tracing.count("forwards", self.n_pred)
+                            tracing.count("forwards")
                             dist = model(x)
+                        with tracing.span("test2d.ssn_sample"):
+                            b, _, h, w = x.shape
+                            tracing.count("ssn_samples", self.n_pred * b)
                             samples = dist.rsample(self.generator,
                                                    self.n_pred)
-                            b, _, h, w = x.shape
                             logits = samples.reshape(self.n_pred, b,
                                                      model.num_classes, h, w)
                             preds.extend(torch.softmax(logits, dim=2))
