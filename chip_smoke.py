@@ -134,7 +134,11 @@ Phases, each of which raises on failure:
    step on the card against the CPU's in float64 and float32, and TF32
    against off; ``test_2d`` on the trained checkpoints (5 families, 4
    splits) and ``eval_config_gta``'s six tasks, each timed; no launch
-   of K1-K3;
+   of K1-K3, and the SSN's runs launch SSN-C and SSN-S
+   (``ops/kernels/ssn_sample.py``) once a batch, counted; between the
+   two, SSN-C and SSN-S at the 2D SSN's shape (B 6, C 24, 256x478, R
+   10, S 10) against a float64 composition, timed against their bytes
+   (``time_ssn_sample``), join the kernels line;
 8n. "reporting" (host only, ``evaluation/visualization``): the table CLI
    on ``table_config_lidc`` over the first cycle that 8l evaluated and on
    ``table_config_gta`` over the tree that 8m evaluated, each cut to its
@@ -238,6 +242,7 @@ def phase(name: str, card: str):
 
 def _wrappers() -> dict:
     """Each kernel's wrapper, which counts its launches."""
+    from values_tpu_torch.ops.kernels import ssn_sample
     from values_tpu_torch.ops.kernels.conv3d import (conv3d_fused,
                                                      conv3d_fused_dx,
                                                      conv3d_fused_train)
@@ -247,7 +252,9 @@ def _wrappers() -> dict:
             "conv3d_fused_train": conv3d_fused_train,
             "conv3d_fused_dx": conv3d_fused_dx,
             "fused_entropy": fused_entropy,
-            "sampled_softmax_stats": sampled_softmax_stats}
+            "sampled_softmax_stats": sampled_softmax_stats,
+            "ssn_capacitance": ssn_sample.capacitance,
+            "ssn_sample_softmax": ssn_sample.sample_softmax}
 
 
 def reset_launches() -> None:
@@ -259,15 +266,20 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     """K1's count holds every launch of K1's kernels, K1b's dx entry's
     included; conv3d_fused_train's holds K1b's dx launches and
-    conv3d_fused_dx's the dx entry's launches."""
+    conv3d_fused_dx's the dx entry's launches; ssn_capacitance's and
+    ssn_sample_softmax's count their wrappers' calls (SSN-C's two kernels,
+    SSN-S's one)."""
     return {name: w.launches for name, w in _wrappers().items()}
 
 
 def expect_launches(launches: dict, want: dict, what: str) -> None:
     """The counts must be ``want``'s; every K1b dx is one launch of the dx
-    entry, so where ``want`` names no count for the entry it is K1b's."""
+    entry, so where ``want`` names no count for the entry it is K1b's; a
+    kernel ``want`` does not name must not have launched."""
     want = dict(want)
     want.setdefault("conv3d_fused_dx", want.get("conv3d_fused_train", 0))
+    for name in launches:
+        want.setdefault(name, 0)
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, expected {want}")
 
@@ -4626,7 +4638,7 @@ GTA_RUNS = (("softmax", "float32", "id"), ("softmax", "float32", "ood"),
             ("softmax", "bfloat16", "ood"), ("ensemble", "float32", "ood"),
             ("ensemble", "bfloat16", "ood"), ("dropout", "float32", "ood"),
             ("tta", "float32", "ood"), ("ssn", "float32", "ood"),
-            ("sliding", "float32", "id"))
+            ("ssn", "float64", "ood"), ("sliding", "float32", "id"))
 GTA_SAMPLES = {"softmax": 1, "ensemble": GTA_MEMBERS, "dropout": GTA_N_PRED,
                "tta": 4, "ssn": GTA_N_PRED, "sliding": 1}
 # device kernels by family, matched on the lower-cased kernel name, first
@@ -5036,7 +5048,8 @@ def twod_path(card: str) -> dict:
     family through the test_2d CLI under PyTorch's default (TF32), each
     tree checked; the card against the CPU path, TF32, bf16; the sliding
     window against a plain loop; the forward's rates, FLOP/s, memory and
-    profiles. No launch of K1-K3 anywhere in it."""
+    profiles. No launch of K1-K3 anywhere in it; the SSN run launches
+    SSN-C and SSN-S once a member and batch, and nothing else does."""
     import threading
     from collections import Counter
     import torch
@@ -5101,6 +5114,7 @@ def twod_path(card: str) -> dict:
         if family == "sliding":
             argv += ["--sliding_window", str(GTA_HW[0]), str(GTA_HW[1]),
                      "-i", full]
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with tf32(True):  # PyTorch's default, which main() turned off
@@ -5108,6 +5122,13 @@ def twod_path(card: str) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         ids = [k for k in tester.results_dict if k != "mean"]
+        # one member: a capacitance and a sample launch a batch
+        batches = -(-len(ids) // GTA_BATCH)
+        want = ({"ssn_capacitance": batches, "ssn_sample_softmax": batches}
+                if family == "ssn" else {})
+        expect_launches(read_launches(), want, f"test_2d {family} {dtype}")
+        if family == "ssn" and dtype == "float32":
+            ssn_launches = want
         hw = GTA_FULL_HW if family == "sliding" else GTA_HW
         check_2d_tree(tester.save_dir, family, ids, hw)
         runs[f"{family} {dtype} {split}"] = {
@@ -5120,6 +5141,7 @@ def twod_path(card: str) -> dict:
             f"{runs[f'{family} {dtype} {split}']['dice']:.4f}; tree checked;"
             f" card {card}")
         del tester
+    reset_launches()
 
     # one batch of the id split, as the tester feeds it
     loader_args = test_2d.test_cli(["--checkpoint_paths"] + ckpts["softmax"]
@@ -5185,13 +5207,140 @@ def twod_path(card: str) -> dict:
         checks["misses"].append(f"kernel launches {launches}")
     shutil.rmtree(root)
     seconds = time.perf_counter() - t_phase
-    log(f"2D phase: {seconds:.1f} s; K1-K3 launches {json.dumps(launches)} "
-        f"(none expected); card {card}")
+    log(f"2D phase: {seconds:.1f} s; the SSN run's launches "
+        f"{json.dumps(ssn_launches)} (as expected, and none in the other "
+        f"runs); launches after the runs {json.dumps(launches)} (none "
+        f"expected); card {card}")
     if checks["misses"]:
         raise AssertionError(f"the 2D phase missed: {checks['misses']}")
     return {"runs": runs, "checks": checks, "forward": forward,
+            "ssn_launches": ssn_launches,
             "profiles": profiles, "sliding_err": sliding_err,
             "sliding_s": sliding_s, "flops": flops, "seconds": seconds}
+
+
+# -- the SSN's sampling kernels (no TPU counterpart) -------------------------
+
+def ssn_sample_inputs(gen):
+    """mean, cov_diag (B, N) and cov_factor (B, N, R) at the 2D SSN's
+    shape (GTA_BATCH images, GTA_CLASSES classes at GTA_HW, rank
+    SSN_RANK), float32: the factor as the HRNet head's ``reshape(B, R,
+    N).transpose(1, 2)`` view of (B, R*C, H, W), sum_r W^2 about D, log D
+    uniform in [-2, 2]."""
+    import torch
+    b, c, (h, w), r = GTA_BATCH, GTA_CLASSES, GTA_HW, SSN_RANK
+    n = c * h * w
+    mean = 2 * torch.randn((b, n), generator=gen, device="cuda")
+    cov_diag = torch.exp(torch.rand((b, n), generator=gen, device="cuda") * 4
+                         - 2)
+    factor = (torch.randn((b, r * c, h, w), generator=gen, device="cuda")
+              .reshape(b, r, n) * (cov_diag / r).sqrt()[:, None]
+              ).transpose(1, 2)
+    return mean, cov_diag, factor
+
+
+def time_ssn_sample(launches: dict, card: str) -> list:
+    """SSN-C and SSN-S through their wrappers at the 2D SSN's shape (B 6,
+    C 24, 256x478, R 10, S GTA_N_PRED; float32, the head's factor view),
+    with image 1's factor made non-finite: the capacitance against
+    float64's ``I + W^T D^-1 W`` (relative to its diagonal, 1e-5; the
+    same bits twice) and the flags as ``degenerate()``'s (image 1 alone);
+    the samples against the float64 plain composition (``samples``, then
+    the softmax) on the same normals: |dp| at most 1e-5 (float32 rounding
+    of logits ~10; a wrong term, skip or softmax misses by orders more),
+    image 1 the diagonal's alone. Then, on the sound factor, device time
+    (10 calls queued), the float32 plain versions' (cuBLAS's capacitance
+    product; the composition with ``degenerate()``), the byte bounds and
+    the launches the 2D phase's SSN run made."""
+    import torch
+    from values_tpu_torch.models.ssn_unet3d import LowRankMVN
+    from values_tpu_torch.ops.kernels import ssn_sample
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    mean, cov_diag, factor = ssn_sample_inputs(gen)
+    b, n, r = factor.shape
+    c, s = GTA_CLASSES, GTA_N_PRED
+    sound = factor[1, 5, 3].clone()
+    factor[1, 5, 3] = float("inf")
+    cap = ssn_sample.capacitance(cov_diag, factor)
+    same = torch.equal(cap, ssn_sample.capacitance(cov_diag, factor))
+    flags = ssn_sample.cholesky_flags(cap)
+    dist = LowRankMVN(mean, cov_diag, factor)
+    wd = factor[flags.logical_not()].double()
+    want_cap = torch.eye(r, dtype=torch.float64, device="cuda") + (
+        wd / cov_diag[flags.logical_not()].double()[..., None]
+    ).transpose(1, 2) @ wd
+    scale = want_cap.diagonal(dim1=1, dim2=2).sqrt()
+    cap_err = float(((cap[flags.logical_not()].double() - want_cap).abs()
+                     / (scale[:, :, None] * scale[:, None, :])).max())
+    eps_r = torch.randn((s, b, r), generator=gen, device="cuda")
+    eps_d = torch.randn((s, b, n), generator=gen, device="cuda")
+    got = ssn_sample.sample_softmax(mean, cov_diag, factor, flags, eps_r,
+                                    eps_d, c)
+    want = torch.softmax(LowRankMVN(
+        mean.double(), cov_diag.double(), factor.double()).samples(
+            eps_r.double(), eps_d.double()).reshape(got.shape), dim=2)
+    err = float((got.double() - want).abs().max())
+    diagonal = torch.softmax((mean[1].double() + cov_diag[1].double().sqrt()
+                              * eps_d[:, 1].double()).reshape(s, c, -1),
+                             dim=1)
+    diag_err = float((got[:, 1].double() - diagonal).abs().max())
+    del want, diagonal, wd
+    misses = [m for m, bad in (
+        ("capacitance", not cap_err < 1e-5), ("run to run", not same),
+        ("flags", flags.tolist() != [k == 1 for k in range(b)]
+         or not torch.equal(flags, dist.degenerate())),
+        ("samples", not err <= 1e-5),
+        ("degenerate image", not diag_err <= 1e-5)) if bad]
+    log(f"SSN-C and SSN-S at B {b}, C {c}, {GTA_HW[0]}x{GTA_HW[1]}, R {r}, S "
+        f"{s} (f32, image 1's factor non-finite): capacitance against "
+        f"float64 {cap_err:.2e} of its diagonal (bound 1e-5), the same bits "
+        f"twice {same}, flags {flags.tolist()}; samples against float64 "
+        f"max |dp| {err:.2e}, the degenerate image against its diagonal "
+        f"alone {diag_err:.2e} (bound 1e-5); card {card}")
+    if misses:
+        raise AssertionError(f"the SSN sampling kernels missed: {misses}")
+
+    factor[1, 5, 3] = sound
+    flags = ssn_sample.degenerate(cov_diag, factor)
+    if bool(flags.any()):
+        raise AssertionError("the timed SSN inputs are degenerate")
+    dist = LowRankMVN(mean, cov_diag, factor)
+    shape = (s, b, c, n // c)
+    cap_bytes = 4 * b * n * (r + 1)            # the factor and D, once
+    sample_bytes = 4 * b * n * (r + 2 + 2 * s)  # W, mean, D; eps_d, out
+    entries = []
+    for name, fn, plain, nbytes, ops in (
+            ("ssn_capacitance",
+             lambda: ssn_sample.capacitance(cov_diag, factor),
+             lambda: ssn_sample.capacitance_reference(cov_diag, factor),
+             cap_bytes, b * n * (r + r * (r + 1))),
+            ("ssn_sample_softmax",
+             lambda: ssn_sample.sample_softmax(mean, cov_diag, factor, flags,
+                                               eps_r, eps_d, c),
+             lambda: torch.softmax(dist.samples(eps_r, eps_d).reshape(shape),
+                                   dim=2),
+             sample_bytes, s * b * n * (2 * r + 6))):
+        bound_ms, bound_by = bound(nbytes, ops, "float32")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "values_tpu_torch/csrc/ssn_sample.cu",
+            "replaces": None, "launches": launches[name],
+            "max_abs_err": cap_err if name == "ssn_capacitance" else err,
+            "ms": queued_ms(fn), "plain_ms": cuda_ms(plain, reps=3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bytes": nbytes, "operations": ops,
+            "shape": f"B={b} C={c} HW={GTA_HW[0]}x{GTA_HW[1]} R={r}"
+                     + ("" if name == "ssn_capacitance" else f" S={s}")
+                     + " f32, the head's factor view"})
+    for k in entries:
+        log(f"{k['name']} [{k['shape']}]: device time (10 calls queued "
+            f"behind a spin kernel) {k['ms']:.4f} ms, bound "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']}, {k['bytes'] / 1e9:.3f}"
+            f" GB; {k['bound_ms'] / k['ms']:.1%} of it), plain (float32 "
+            f"torch) {k['plain_ms']:.3f} ms, max_abs_err "
+            f"{k['max_abs_err']:.2e}; launches {k['launches']} in the 2D "
+            f"phase's SSN run; card {card}")
+    return entries
 
 
 # -- the GTA pipeline's training half -----------------------------------------
@@ -5642,7 +5791,8 @@ def gta_training_path(card: str) -> dict:
     24 + 8 raw images (of the archives' ~25,000 + 5,000), 2 epochs (of
     300), pretrain_epochs 1 (of 5), random initial weights (ImageNet's
     would need a download), the SSN's learning rate (GTA_SSN_LR). No
-    launch of K1-K3 anywhere in it."""
+    launch of K1-K3 anywhere in it; SSN-C and SSN-S once a batch of the
+    SSN's test_2d runs."""
     import io
     import torch
     from values_tpu_torch.config import compose, make_config
@@ -5768,6 +5918,7 @@ def gta_training_path(card: str) -> dict:
             "TTA": ([ckpts["softmax 123"]], ["-tta"]),
             "SSN": ([ckpts["ssn"]], ["--n_pred", str(GTA_N_PRED)])}
     test_runs = {}
+    ssn_batches = 0
     for model, (paths, flags) in sets.items():
         for split in GTA_EVAL_SPLITS:
             t0 = time.perf_counter()
@@ -5781,6 +5932,9 @@ def gta_training_path(card: str) -> dict:
             test_runs[f"{model} {split}"] = {
                 "seconds": time.perf_counter() - t0,
                 "images": len(tester.results_dict) - 1, "dice": dice}
+            if model == "SSN":
+                ssn_batches += -(-test_runs[f"{model} {split}"]["images"]
+                                 // GTA_BATCH)
             if not 0 <= dice <= 1:
                 raise AssertionError(f"test_2d {model} {split}: Dice {dice}")
             del tester
@@ -5821,10 +5975,12 @@ def gta_training_path(card: str) -> dict:
     shutil.move(eval_base, kept)
     shutil.rmtree(root)
     seconds_phase = time.perf_counter() - t_phase
-    log(f"GTA training phase: {seconds_phase:.1f} s; K1-K3 launches "
-        f"{json.dumps(launches)} (none expected); card {card}")
-    if any(launches.values()):
-        raise AssertionError(f"the GTA training phase launched {launches}")
+    log(f"GTA training phase: {seconds_phase:.1f} s; launches "
+        f"{json.dumps(launches)} (none of K1-K3; SSN-C and SSN-S "
+        f"{ssn_batches} each, one a batch of the SSN's test_2d); card {card}")
+    expect_launches(launches, {"ssn_capacitance": ssn_batches,
+                               "ssn_sample_softmax": ssn_batches},
+                    "the GTA training phase")
     return {"preprocess_s_per_image": {
         k: v / (GTA_RAW_IMAGES if k == "gta" else CS_RAW_IMAGES)
         for k, v in seconds.items()}, "runs": runs, "steps": steps,
@@ -6681,6 +6837,8 @@ def main() -> int:
                     "conv3d_fused_train"]
     with phase("2D path", smi):
         twod = twod_path(smi)
+    with phase("SSN sampling kernels", smi):
+        kernels += time_ssn_sample(twod["ssn_launches"], smi)
     with phase("GTA training path", smi):
         gta = gta_training_path(smi)
     with phase("reporting", smi):

@@ -278,6 +278,8 @@ def test_tester2d_ssn_spans_and_counters(tmp_path):
     totals = tracing.totals()
     assert totals["forwards"] == S * batches
     assert totals["ssn_samples"] == S * batches * n_pred * B
+    # the CPU draws through rsample: the card's kernels count none
+    assert totals.get("ssn_fused_samples", 0) == 0
     assert totals["images"] == batches * B
     assert "graphed_forwards" not in totals
     assert len(tester.results_dict) == batches * B + 1

@@ -45,7 +45,9 @@ deterministic eval pass (softmax ensembles, ``--n_pred`` passes of a model
 without DROPOUT_FINAL, ``-tta``, either type) replays a CUDA graph of its
 model captured on its first batch (:class:`GraphedPass`), which takes the
 host's per-op dispatch off the path; MC dropout, the SSN and
-``--sliding_window`` run eagerly, as does every pass on the CPU.
+``--sliding_window`` run eagerly, as does every pass on the CPU. On the
+card an SSN's samples and their softmax come from the hand-written
+kernels of ``ops/kernels/ssn_sample.py`` (float32 or float64).
 """
 from __future__ import annotations
 
@@ -289,11 +291,9 @@ class Tester2D:
                         with tracing.span("test2d.ssn_sample"):
                             b, _, h, w = x.shape
                             tracing.count("ssn_samples", self.n_pred * b)
-                            samples = dist.rsample(self.generator,
-                                                   self.n_pred)
-                            logits = samples.reshape(self.n_pred, b,
-                                                     model.num_classes, h, w)
-                            preds.extend(torch.softmax(logits, dim=2))
+                            preds.extend(dist.sample_softmax(
+                                self.generator, self.n_pred,
+                                (model.num_classes, h, w)))
                     elif self.tta:
                         # B items x 4 variants; each variant runs as a
                         # batch and hflip outputs are un-flipped

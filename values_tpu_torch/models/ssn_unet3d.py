@@ -20,6 +20,9 @@ capacitance ``I + W^T D^-1 W`` and a zero factor where it fails.
 
 The normals come from :func:`draw_ssn_normals`, the one place the SSN
 paths draw (the scorer, the predictors), with an explicit generator.
+:meth:`LowRankMVN.sample_softmax` (the 2D tester's samples) runs the
+check, the samples and their softmax as the hand-written kernels of
+``ops/kernels/ssn_sample.py`` on the card.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops.kernels import ssn_sample
 from ..parallel.collectives import draw_rows
 from .unet3d import UNet3D
 
@@ -66,12 +70,8 @@ class LowRankMVN:
         """(B,) bool: where torch's constructor would fail, i.e. where the
         float32 Cholesky of ``I + W^T D^-1 W`` fails or is not finite.
         One batched factorization, kept on the device, outside autograd."""
-        w = self.cov_factor.detach().to(torch.float32)
-        w_d = w / self.cov_diag.detach().to(torch.float32)[..., None]
-        cap = torch.eye(w.shape[-1], dtype=torch.float32, device=w.device) \
-            + w_d.transpose(1, 2) @ w
-        chol, info = torch.linalg.cholesky_ex(cap)
-        return (info != 0) | ~torch.isfinite(chol).all(dim=(-2, -1))
+        return ssn_sample.cholesky_flags(ssn_sample.capacitance_reference(
+            self.cov_diag, self.cov_factor))
 
     def sampling_terms(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(factor (B, N, R), zero where :meth:`degenerate`; sqrt(cov_diag)
@@ -88,15 +88,55 @@ class LowRankMVN:
                 ) -> torch.Tensor:
         """(n, B, N) samples, normals drawn by :func:`draw_ssn_normals`;
         ``terms`` from :meth:`sampling_terms`, if already taken."""
+        terms = terms or self.sampling_terms()
+        return self.samples(*self._draw(generator, n, terms[0].shape[-1]),
+                            terms)
+
+    def samples(self, eps_r: torch.Tensor, eps_d: torch.Tensor,
+                terms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """(n, B, N) samples ``mean + W eps_r + sqrt(D) eps_d`` of the
+        normals ``eps_r`` (n, B, R) and ``eps_d`` (n, B, N), W zero where
+        :meth:`degenerate`; ``terms`` from :meth:`sampling_terms`, if
+        already taken."""
         factor, sqrt_diag = terms or self.sampling_terms()
-        b, dim = self.mean.shape
-        # in a data-parallel step: the global batch's normals, this
-        # rank's rows
-        eps_r, eps_d = draw_rows(lambda shape: list(draw_ssn_normals(
-            generator, n, shape[1], factor.shape[-1], dim, self.mean.dtype,
-            self.mean.device)), (n, b), dim=1)
         return (self.mean[None] + torch.einsum("bnr,sbr->sbn", factor, eps_r)
                 + sqrt_diag[None] * eps_d)
+
+    def _draw(self, generator: Optional[torch.Generator], n: int, rank: int
+              ) -> list:
+        """[eps_r (n, B, R), eps_d (n, B, N)] from :func:`draw_ssn_normals`,
+        looked up at call time; in a data-parallel step the global batch's
+        normals, this rank's rows."""
+        b, dim = self.mean.shape
+        return draw_rows(lambda shape: list(draw_ssn_normals(
+            generator, n, shape[1], rank, dim, self.mean.dtype,
+            self.mean.device)), (n, b), dim=1)
+
+    def sample_softmax(self, generator: Optional[torch.Generator], n: int,
+                       shape: Tuple[int, ...]) -> torch.Tensor:
+        """(n, B, *shape) softmax over ``shape[0]``, the classes, of ``n``
+        samples whose N logits an image are laid out as ``shape``. On the
+        card the kernels of :mod:`~values_tpu_torch.ops.kernels.ssn_sample`
+        run the stage: the capacitance and its Cholesky for
+        :meth:`degenerate`'s flags, then the samples and their softmax in
+        one pass, on normals drawn as :meth:`rsample` draws them. The
+        kernels have no backward, so a gradient raises there. On the CPU
+        :meth:`rsample`, then ``torch.softmax``."""
+        shape = tuple(self.mean.shape[:1]) + tuple(shape)
+        if self.mean.device.type != "cuda":
+            return torch.softmax(self.rsample(generator, n).reshape(
+                (n,) + shape), dim=2)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (self.mean, self.cov_diag,
+                                          self.cov_factor)):
+            raise RuntimeError("sample_softmax's kernels have no backward; "
+                               "differentiate rsample's samples instead")
+        flags = ssn_sample.degenerate(self.cov_diag, self.cov_factor)
+        eps_r, eps_d = self._draw(generator, n, self.cov_factor.shape[-1])
+        return ssn_sample.sample_softmax(
+            self.mean, self.cov_diag, self.cov_factor, flags, eps_r, eps_d,
+            shape[1]).reshape((n,) + shape)
 
 
 def ssn_distribution(features: torch.Tensor, heads, num_classes: int,
