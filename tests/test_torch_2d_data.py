@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 from tests.test_2d_path import AUG_CONFIG, _hrnet_hparams, make_gta_tree
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.config import instantiate as jax_instantiate
 from values_tpu.config import make_config as jax_make_config
 from values_tpu.data import augment2d as JA

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 import values_tpu.evaluation.al_driver as J_DRV
 import values_tpu.evaluation.experiment_dataloader as J_DL
 import values_tpu.evaluation.experiment_version as J_EV

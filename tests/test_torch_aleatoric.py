@@ -7,6 +7,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_unet3d import flax_init
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.inference import scoring as jscoring
 from values_tpu.models.ensemble_unet3d import group_member_variables
 from values_tpu.models.unet3d import UNet3D as JaxUNet3D
@@ -28,10 +30,8 @@ def case():
     traced (fault R1)."""
     base = JaxUNet3D(num_classes=2, initial_filter_size=8,
                      aleatoric_loss=True)
-    init = jax.jit(base.init)
-    variables = [jax.tree_util.tree_map(
-        np.asarray, init(k, jnp.zeros((1, P, P, P, 1))))
-        for k in jax.random.split(jax.random.PRNGKey(1), M)]
+    variables = [flax_init(base, 10 + m, jnp.zeros((1, P, P, P, 1)))
+                 for m in range(M)]
     rs = np.random.RandomState(0)
     vols = rs.rand(B, P, P, P, 1).astype(np.float32)
     gts = {"single": (rs.rand(B, P, P, P) > 0.7).astype(np.int32),
@@ -46,8 +46,8 @@ def case():
             M, P, n_aleatoric_samples=NS, agg_patch=AGG, dtype=jnp.float32,
             sampler="pallas", interpret=True)
         stacked = group_member_variables(variables)
-        want = {k: np.asarray(score(stacked, jnp.asarray(vols),
-                                    jnp.asarray(g), rng))
+        want = {k: np.asarray(jax.jit(score)(stacked, jnp.asarray(vols),
+                                             jnp.asarray(g), rng))
                 for k, g in gts.items()}
     weights = group_member_state_dicts(
         [unet3d_params_to_torch(v) for v in variables])

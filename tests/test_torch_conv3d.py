@@ -8,6 +8,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.ops.pallas.conv3d import (conv3d_banded_packed, pack_ndhwc,
                                           unpack_ndhwc)
 from values_tpu_torch.ops.kernels.conv3d import (concat_groups,

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.core import io as jio
 from values_tpu.data import samples as jsamples
 from values_tpu.inference import test_3d as jtest_3d

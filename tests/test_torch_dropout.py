@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_unet3d import flax_init
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 import values_tpu.models.ensemble_unet3d_pallas as jpallas
 from values_tpu.inference import scoring as jscoring
 from values_tpu.models.ensemble_unet3d import group_member_variables
@@ -65,10 +67,8 @@ def case():
     mode; VALUES_TPU_AGG_LINEAR=0 set before the scorer is traced, fault
     R1)."""
     model = JaxUNet3D(num_classes=2, initial_filter_size=8)
-    init = jax.jit(model.init)
-    variables = [jax.tree_util.tree_map(
-        np.asarray, init(k, jnp.zeros((1, P, P, P, 1))))
-        for k in jax.random.split(jax.random.PRNGKey(3), M)]
+    variables = [flax_init(model, 30 + m, jnp.zeros((1, P, P, P, 1)))
+                 for m in range(M)]
     grouped = jax.tree_util.tree_map(jnp.asarray,
                                      group_member_variables(variables))
     rs = np.random.RandomState(0)
@@ -85,9 +85,9 @@ def case():
     key = jax.random.PRNGKey(11)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jpallas, "_dropout", recording)
-        out = jpallas.grouped_forward_packed(
-            grouped, pack_ndhwc(jnp.asarray(padded), BP), M, P,
-            do_dropout=True, rng=key, interpret=True)
+        out = jax.jit(lambda g, x, k: jpallas.grouped_forward_packed(
+            g, x, M, P, do_dropout=True, rng=k, interpret=True))(
+                grouped, pack_ndhwc(jnp.asarray(padded), BP), key)
     assert len(shapes) == 17
     nb, d, h, m, c, lanes = out.shape
     logits = np.asarray(unpack_ndhwc(out.reshape(nb, d, h, m * c, lanes),
@@ -98,8 +98,9 @@ def case():
         score, _ = jscoring.make_packed_dropout_scorer(
             M, P, n_pred=N_PRED, agg_patch=AGG, dtype=jnp.float32,
             interpret=True)
-        scores = np.asarray(score(group_member_variables(variables),
-                                  jnp.asarray(vols), jnp.asarray(gt), rng))
+        scores = np.asarray(jax.jit(score)(
+            group_member_variables(variables), jnp.asarray(vols),
+            jnp.asarray(gt), rng))
     weights = group_member_state_dicts(
         [unet3d_params_to_torch(v) for v in variables])
     return dict(weights=weights, vols=vols, gt=gt, shapes=shapes,
@@ -156,8 +157,8 @@ def test_plain_unet3d_dropout_matches_flax_f64(monkeypatch):
         model = JaxUNet3D(num_classes=2, initial_filter_size=4,
                           do_dropout=True, dtype=jnp.float64,
                           param_dtype=jnp.float64)
-        want = np.asarray(model.apply(variables, jnp.asarray(x),
-                                      deterministic=False))
+        want = np.asarray(jax.jit(lambda v, xx: model.apply(
+            v, xx, deterministic=False))(variables, jnp.asarray(x)))
     got = net(torch.from_numpy(x),
               keep_masks=[torch.from_numpy(m) for m in masks])
     np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-10,
@@ -228,9 +229,8 @@ def test_engine_mc_dropout_matches_jax_engine(monkeypatch):
     same masks. Softmax sums, counts and data sums, float64 at 1e-10."""
     from values_tpu.inference.engine import SlidingWindowEngine as JaxEngine
     from values_tpu_torch.inference.engine import SlidingWindowEngine
-    init = jax.jit(JaxUNet3D(num_classes=2, initial_filter_size=2).init)
-    variables = [jax.tree_util.tree_map(
-        np.asarray, init(jax.random.PRNGKey(1), jnp.zeros((1, P, P, P, 1))))]
+    variables = [flax_init(JaxUNet3D(num_classes=2, initial_filter_size=2),
+                           1, jnp.zeros((1, P, P, P, 1)))]
     rs = np.random.RandomState(6)
     vol = rs.rand(16, 32, 16)
     drawn = []

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 import values_tpu.models.ensemble_unet3d_pallas as jpallas
 from values_tpu.config import make_config as jax_make_config
 from values_tpu.models.unet3d import UNet3D as JaxUNet3D
@@ -101,17 +102,19 @@ class _Masks:
                 for m in masks]
 
 
-def _feed_flax(monkeypatch, masks):
-    """Patch flax's Dropout to apply ``masks`` in call order (and to
-    pass its input through where it is deterministic)."""
-    calls = iter(masks)
+def _feed_flax(monkeypatch):
+    """Patch flax's Dropout to apply the masks put in the list it returns,
+    in call order (and to pass its input through where it is
+    deterministic); a jitted function takes them when it is traced."""
+    feed = []
 
     def dropout(self, inputs, deterministic=None, rng=None):
         if deterministic:
             return inputs
-        return jnp.where(next(calls), inputs / 0.5, 0.0)
+        return jnp.where(feed.pop(0), inputs / 0.5, 0.0)
 
     monkeypatch.setattr(fnn.Dropout, "__call__", dropout)
+    return feed
 
 
 @pytest.fixture(scope="module")
@@ -130,7 +133,8 @@ def test_loss_and_gradients_match_flax_float64(params, monkeypatch):
     true gradient of 0)."""
     x, seg = _batch(2)
     masks = _site_masks(params, 0)
-    _feed_flax(monkeypatch, masks)
+    feed = _feed_flax(monkeypatch)
+    feed.extend(masks)
     with jax.enable_x64(True):
         model = JaxUNet3D(num_classes=2, initial_filter_size=F,
                           do_dropout=True, dtype=jnp.float64,
@@ -141,9 +145,10 @@ def test_loss_and_gradients_match_flax_float64(params, monkeypatch):
             out = model.apply({"params": p}, xj, deterministic=False)
             return JL.dice_ce_loss(jnp.moveaxis(out, -1, 1), tj)
 
-        want_loss, want = jax.value_and_grad(jax_loss)(
+        want_loss, want = jax.jit(jax.value_and_grad(jax_loss))(
             jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
                                    params))
+    assert not feed
     tp = tree_map(lambda a: torch.tensor(a, dtype=torch.float64)
                   .requires_grad_(True), params)
     out = train_forward(tp, torch.tensor(x, dtype=torch.float64),
@@ -174,30 +179,37 @@ def _close_trees(got, want, rtol):
 
 def test_steps_match_jax_experiment(params, monkeypatch):
     """Three steps from the same init on the same batches and masks (the
-    JAX step run unjitted, so each step's forward reads its own masks),
+    JAX step jitted with its masks as arguments, so each step's forward
+    reads its own masks),
     f32: losses at rtol 2e-4, every leaf after 3 steps within 1e-4 of its
     norm; then the deterministic val_step (no dropout on either side):
     loss at rtol 2e-4, Dice at 1e-6."""
     steps = [_site_masks(params, 10 + i) for i in range(3)]
-    flax_masks = [m for step in steps for m in step]
-    _feed_flax(monkeypatch, flax_masks)
+    feed = _feed_flax(monkeypatch)
     monkeypatch.setattr(E, "draw_dropout_masks", _Masks(steps))
     port = Experiment(make_config(_cfg()), "cpu")
     state = port.state_from_variables({"params": params})
     jexp = JaxExperiment(jax_make_config(_cfg(train_backend="xla")))
     jstate = jexp.state_from_variables(
         {"params": jax.tree_util.tree_map(jnp.asarray, params)})
+
+    @jax.jit
+    def jax_step(jstate, batch, key, masks):
+        feed.extend(masks)
+        return jexp.train_step_fn(jstate, batch, key)
+
     got, want = [], []
     for step in range(3):
         x, seg = _batch(10 + step)
         state, loss = port.train_step(
             state, {"data": torch.tensor(x), "seg": torch.tensor(seg)},
             torch.Generator().manual_seed(step))
-        jstate, jloss = jexp.train_step_fn(
+        jstate, jloss = jax_step(
             jstate, {"data": jnp.asarray(x), "seg": jnp.asarray(seg)},
-            jax.random.PRNGKey(step))
+            jax.random.PRNGKey(step), steps[step])
         got.append(float(loss))
         want.append(float(jloss))
+    assert not feed
     np.testing.assert_allclose(got, want, rtol=2e-4)
     _close_trees(dict(_leaves(tree_map(lambda t: t.detach().numpy(),
                                        state.params))),
@@ -366,9 +378,9 @@ def test_cli_trains_and_serves(toy, tmp_path, precision):
                  f"+precision={precision}"])
     payload = jax_load(ckpt)
     assert payload["hyper_parameters"]["model"]["do_dropout"] is True
-    init = JaxUNet3D(num_classes=2, initial_filter_size=2,
-                     do_dropout=True).init(jax.random.PRNGKey(0),
-                                           jnp.zeros((1, P, P, P, 1)))
+    init = jax.eval_shape(JaxUNet3D(num_classes=2, initial_filter_size=2,
+                                    do_dropout=True).init,
+                          jax.random.PRNGKey(0), jnp.zeros((1, P, P, P, 1)))
     shapes = lambda t: jax.tree_util.tree_map(np.shape, t)  # noqa: E731
     assert shapes(payload["state_dict"]) == shapes(init)
     for name, leaf in _leaves(payload["state_dict"]["params"]):

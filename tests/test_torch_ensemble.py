@@ -7,6 +7,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_unet3d import flax_init
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.models.ensemble_unet3d import (EnsembleUNet3D,
                                                group_member_variables)
 from values_tpu.models.ensemble_unet3d_pallas import grouped_forward_packed
@@ -24,11 +26,8 @@ def _member_variables(f, dtype, aleatoric=False):
         model = JaxUNet3D(num_classes=2, initial_filter_size=f,
                           aleatoric_loss=aleatoric, dtype=dtype,
                           param_dtype=dtype)
-        init = jax.jit(model.init)
-        keys = jax.random.split(jax.random.PRNGKey(0), M)
-        return [jax.tree_util.tree_map(
-            np.asarray, init(k, jnp.zeros((1, P, P, P, 1), dtype)))
-            for k in keys]
+        return [flax_init(model, m, jnp.zeros((1, P, P, P, 1), dtype),
+                          dtype=dtype) for m in range(M)]
 
 
 def _port_weights(variables, dtype):
@@ -45,8 +44,8 @@ def pallas_case():
     bp = 128 // P
     grouped = jax.tree_util.tree_map(jnp.asarray,
                                      group_member_variables(variables))
-    out = grouped_forward_packed(grouped, pack_ndhwc(jnp.asarray(x), bp),
-                                 M, P, interpret=True)
+    out = jax.jit(lambda g, xx: grouped_forward_packed(
+        g, xx, M, P, interpret=True))(grouped, pack_ndhwc(jnp.asarray(x), bp))
     nb, d, h, m, c, lanes = out.shape
     logits = unpack_ndhwc(out.reshape(nb, d, h, m * c, lanes), bp)
     return variables, x, np.asarray(logits).reshape(B, P, P, P, M, c)

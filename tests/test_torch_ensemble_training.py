@@ -6,11 +6,13 @@ tests/test_torch_training.py holds against the JAX package), and the
 checkpoints read back by both packages. No test here steps the JAX
 EnsembleTrainer: it runs the Pallas pipeline in interpret mode on the
 CPU, far too slow for these tests."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.models.ensemble_unet3d import \
     group_member_variables as jax_group
 from values_tpu.models.ensemble_unet3d import \
@@ -152,10 +154,10 @@ def test_first_joint_losses_match_jax():
         got = trainer.loss(state.params, {"data": torch.tensor(x),
                                           "seg": torch.tensor(seg)})
     model = JaxUNet3D(num_classes=2, initial_filter_size=F)
-    want = [float(jax_dice_ce_loss(
-        jnp.moveaxis(model.apply(variables, jnp.asarray(x[m])), -1, 1),
-        jnp.asarray(seg[m])))
-        for m, variables in enumerate(trainer.member_variables(state))]
+    loss = jax.jit(lambda v, xm, sm: jax_dice_ce_loss(
+        jnp.moveaxis(model.apply(v, xm), -1, 1), sm))
+    want = [float(loss(variables, jnp.asarray(x[m]), jnp.asarray(seg[m])))
+            for m, variables in enumerate(trainer.member_variables(state))]
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4)
 
 

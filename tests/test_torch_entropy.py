@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.ops.pallas.entropy import fused_entropy_pallas
 from values_tpu.ops.uncertainty import fused_sample_statistics
 from values_tpu_torch.ops.kernels.entropy import (fused_entropy,

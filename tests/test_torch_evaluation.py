@@ -21,6 +21,7 @@ from sklearn.calibration import _sigmoid_calibration as sk_sigmoid
 from sklearn.metrics import auc as sk_auc
 from sklearn.metrics import roc_curve as sk_roc_curve
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 import values_tpu.evaluation.aggregate_uncertainties as J_AGG
 import values_tpu.evaluation.eval_experiments as J_EVAL
 import values_tpu.evaluation.experiment_dataloader as J_DL

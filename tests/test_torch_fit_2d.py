@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 import values_tpu.evaluation.eval_experiments as J_EVAL
 from tests.test_2d_path import AUG_CONFIG, H, W, make_gta_tree
 from tests.test_hrnet import small_cfg
@@ -34,17 +35,6 @@ from values_tpu_torch.training.main import main as train_main
 ROOT = Path(__file__).resolve().parents[1]
 VERSION = "fold0_seed123"
 SPLITS = ("val", "id", "ood", "unlabeled")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's small CPU steps: tier-1 runs
-    six workers on the host's cores, where torch's default of one
-    thread per core oversubscribes them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _config(gta, save_dir, seed, **cfg_kw):

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 from sklearn.model_selection import KFold
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.data import cityscapes_labels as JL
 from values_tpu.data import gta_preprocess as J
 from values_tpu_torch.data import gta_preprocess as P

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from tests.test_hrnet import small_cfg
+from test_torch_unet3d import flax_init
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.models.hrnet import HighResolutionNet as JaxHRNet
 from values_tpu.models.torch_import import hrnet_params_from_torch
 from values_tpu.training.checkpoint import save_checkpoint as jax_save
@@ -30,13 +32,9 @@ def _cfg(head):
 
 
 def _variables(cfg, seed=0):
-    """JAX-initialized variables (float64) with random running stats."""
-    model = JaxHRNet(cfg=cfg)
-    with jax.enable_x64(True):
-        v = jax.jit(lambda k: model.init({"params": k, "dropout": k},
-                                         jnp.zeros((1, 32, 32, 3))))(
-            jax.random.PRNGKey(seed))
-    v = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), v)
+    """flax-initialized variables (float64) with random running stats."""
+    v = flax_init(JaxHRNet(cfg=cfg), seed, jnp.zeros((1, 32, 32, 3)),
+                  dtype=np.float64)
     rs = np.random.RandomState(seed + 1)
     v["batch_stats"] = {
         k: {"mean": rs.randn(*s["mean"].shape) * 0.1,

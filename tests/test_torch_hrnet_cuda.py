@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu_torch.config import compose
 from values_tpu_torch.models.hrnet import get_seg_model
 

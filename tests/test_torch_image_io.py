@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu_torch.core.image_io import (read_png, read_tiff_float32,
                                             write_png_rgb,
                                             write_tiff_float32)

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu_torch.ops.kernels.conv3d import (
     SMEM_LIMIT, conv3d_fused_dx_reference, conv3d_fused_reference,
     dx_padded_channels, padded_channels, plan, plan_dx, run_padded,

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu_torch.ops.kernels.conv3d import (SMEM_LIMIT, _row_stride,
                                                  concat_groups,
                                                  conv3d_fused_reference,

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.ops.pallas.conv3d import conv3d_banded_packed_ad
 from values_tpu_torch.ops.kernels.conv3d import (SMEM_LIMIT, FOLDS,
                                                  conv3d_fused,

@@ -14,6 +14,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu import native as jax_native
 from values_tpu.core import nifti
 from values_tpu.data import lidc as JL

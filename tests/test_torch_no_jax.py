@@ -12,6 +12,8 @@ import sys
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "values_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",

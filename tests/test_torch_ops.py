@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.inference.scoring import _packed_mean_rater_dice
 from values_tpu.ops import aggregation as jagg
 from values_tpu.ops import metrics as jmet

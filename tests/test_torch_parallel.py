@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import torch_parallel_cases as C
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.config import compose as jax_compose
 from values_tpu.inference import predictors as jpredictors
 from values_tpu.inference.engine import SlidingWindowEngine as JaxEngine
@@ -31,7 +32,6 @@ from values_tpu_torch.core.seed import fold_seed
 from values_tpu_torch.inference.predictors import (make_pass_range_predictor,
                                                    make_predictor)
 from values_tpu_torch.ops import losses as L
-from values_tpu_torch.parallel import launch
 from values_tpu_torch.parallel.mesh import (hybrid_grid,
                                             initialize_distributed,
                                             make_hybrid_mesh, make_mesh,
@@ -70,7 +70,7 @@ def worlds(tmp_path_factory, tta_draws):
     out = {}
     for world in (2, 4):
         path = tmp_path_factory.mktemp(f"world{world}")
-        launch.spawn(C.run_group, (str(path), world, tta_draws), world)
+        C.spawn_within(C.run_group, (str(path), world, tta_draws), world)
         out[world] = []
         for rank in range(world):
             with open(path / f"rank{rank}.pkl", "rb") as f:
@@ -80,12 +80,7 @@ def worlds(tmp_path_factory, tta_draws):
 
 @pytest.fixture(scope="module")
 def single_steps():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return {name: C.step3d(name) for name in C.STEP_CASES}
-    finally:
-        torch.set_num_threads(threads)
+    return {name: C.step3d(name) for name in C.STEP_CASES}
 
 
 # -- the data-parallel step ---------------------------------------------------
@@ -136,12 +131,7 @@ def test_dp_step_matches_jax_single_device(worlds):
 
 @pytest.fixture(scope="module")
 def single_2d():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return C.step2d()
-    finally:
-        torch.set_num_threads(threads)
+    return C.step2d()
 
 
 def test_masked_ce_step_matches_single_rank(worlds, single_2d):
@@ -206,6 +196,20 @@ def test_hybrid_grid_is_granule_major_and_refuses_a_ragged_world():
     assert grid.ravel().tolist() == [2, 3, 0, 1]
     with pytest.raises(ValueError, match="not divisible into 2 DCN"):
         hybrid_grid(6, n_sample=2, dcn_data=2)
+
+
+def test_a_world_past_its_deadline_is_ended():
+    """``spawn_within``: a rank that would run for an hour is killed at
+    the deadline, and the test that spawned it fails at once with
+    TimeoutError, leaving no rank behind."""
+    import multiprocessing
+    import time
+    before = set(multiprocessing.active_children())
+    start = time.monotonic()
+    with pytest.raises(TimeoutError, match="deadline"):
+        C.spawn_within(time.sleep, (3600,), 1, seconds=5)
+    assert time.monotonic() - start < 60
+    assert set(multiprocessing.active_children()) <= before
 
 
 def test_initialize_distributed_is_a_noop_without_a_launcher(monkeypatch):

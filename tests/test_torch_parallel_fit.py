@@ -13,9 +13,9 @@ import pickle
 
 import numpy as np
 import pytest
-import torch
 
 import torch_parallel_cases as C
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from test_torch_fit_2d import _config as gta_config
 from test_torch_score_cli import _toy_data
 from tests.test_2d_path import make_gta_tree
@@ -24,7 +24,6 @@ from values_tpu.inference.score import score_cli as jax_score_cli
 from values_tpu.training.checkpoint import load_any_checkpoint
 from values_tpu.training.checkpoint import load_checkpoint as jax_load
 from values_tpu_torch.inference.score import run_score, score_cli
-from values_tpu_torch.parallel import launch
 from values_tpu_torch.training.main import main as train_main
 
 
@@ -51,20 +50,15 @@ def runs(tmp_path_factory):
     gta = make_gta_tree(work / "GTA")
     config_2d = gta_config(gta, work / "exp2d", 123).to_container()
     config_2d.update(gpus=2, batch_size=2, max_epochs=1)
-    launch.spawn(C.run_fit_group, (
+    C.spawn_within(C.run_fit_group, (
         str(work), _train_argv(toy, work / "exp", "dp", "devices=2"),
         config_2d, _score_argv(toy, work / "dp.json") + ["--devices", "2"]),
         2)
     with open(work / "rank0.pkl", "rb") as f:
         paths = pickle.load(f)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        single = train_main(_train_argv(toy, work / "exp", "single"))
-        run_score(score_cli(_score_argv(toy, work / "single.json")
-                            + ["--checkpoint_paths", single]))
-    finally:
-        torch.set_num_threads(threads)
+    single = train_main(_train_argv(toy, work / "exp", "single"))
+    run_score(score_cli(_score_argv(toy, work / "single.json")
+                        + ["--checkpoint_paths", single]))
     return work, paths, single
 
 

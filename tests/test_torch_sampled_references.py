@@ -12,6 +12,7 @@ from benchmark import inputs
 from benchmark.drivers import scorer_alea
 from benchmark.reference import aleatoric as ref_alea
 from benchmark.reference import hrnet_ssn, measures
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu_torch.inference.scoring import make_aleatoric_scorer
 from values_tpu_torch.models.ensemble_unet3d import cast_weights
 from values_tpu_torch.models.hrnet import HighResolutionNet

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.ops.pallas import sampling as jsampling
 from values_tpu.ops.pallas.conv3d import pack_ndhwc, unpack_ndhwc
 from values_tpu_torch.inference.scoring import streaming_finalize

@@ -7,12 +7,13 @@ import os
 import pickle
 import random
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from test_torch_unet3d import flax_init
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.config import compose
 from values_tpu.data.toy_datamodule import ToyDataModule3D
 from values_tpu.data.toy_generation import ToyGenConfig, generate_samples
@@ -69,14 +70,14 @@ def _hparams(root, aleatoric=False):
 
 
 def _native_checkpoints(root, name, aleatoric, n=2):
-    """n native checkpoints of UNet3D.init variables (f=2)."""
+    """n native checkpoints of UNet3D variables (f=2, ``flax_init``)."""
     model = JaxUNet3D(num_classes=2, initial_filter_size=F,
                       aleatoric_loss=aleatoric)
-    init = jax.jit(model.init)
     paths = []
-    for i, key in enumerate(jax.random.split(jax.random.PRNGKey(7), n)):
+    for i in range(n):
         path = str(root / f"{name}_{i}.ckpt")
-        save_checkpoint(path, init(key, jnp.zeros((1, P, P, P, 1))),
+        save_checkpoint(path, flax_init(model, 70 + i,
+                                        jnp.zeros((1, P, P, P, 1))),
                         _hparams(root, aleatoric))
         paths.append(path)
     return paths
@@ -322,17 +323,18 @@ def test_cli_picks_the_scorer_the_jax_cli_picks(toy, branch, monkeypatch):
 
 
 def _ssn_checkpoints(root, n=2):
-    """n native checkpoints of SsnUNet3D.init variables (f 2, rank 3)."""
+    """n native checkpoints of SsnUNet3D variables (f 2, rank 3,
+    ``flax_init``)."""
     from values_tpu.models.ssn_unet3d import SsnUNet3D as JaxSsnUNet3D
     model = JaxSsnUNet3D(num_classes=2, initial_filter_size=F, rank=3)
-    init = jax.jit(model.init)
     hp = _hparams(root)
     hp["model"] = dict(SSN_MODEL)
     hp["n_aleatoric_samples"] = 2
     paths = []
-    for i, key in enumerate(jax.random.split(jax.random.PRNGKey(8), n)):
+    for i in range(n):
         path = str(root / f"ssn_{i}.ckpt")
-        save_checkpoint(path, init(key, jnp.zeros((1, P, P, P, 1))), hp)
+        save_checkpoint(path, flax_init(model, 80 + i,
+                                        jnp.zeros((1, P, P, P, 1))), hp)
         paths.append(path)
     return paths
 

@@ -6,6 +6,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_unet3d import flax_init
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.inference import scoring as jscoring
 from values_tpu.models.ensemble_unet3d import group_member_variables
 from values_tpu.models.unet3d import UNet3D as JaxUNet3D
@@ -23,10 +25,8 @@ def case():
     is built and traced: the variable is read at trace time (fault R1),
     and the port aggregates each map on its own."""
     base = JaxUNet3D(num_classes=2, initial_filter_size=8)
-    init = jax.jit(base.init)
-    variables = [jax.tree_util.tree_map(
-        np.asarray, init(k, jnp.zeros((1, P, P, P, 1))))
-        for k in jax.random.split(jax.random.PRNGKey(0), M)]
+    variables = [flax_init(base, m, jnp.zeros((1, P, P, P, 1)))
+                 for m in range(M)]
     rs = np.random.RandomState(0)
     vols = rs.rand(B, P, P, P, 1).astype(np.float32)
     gts = {"single": (rs.rand(B, P, P, P) > 0.7).astype(np.int32),
@@ -36,8 +36,8 @@ def case():
         score, rows = jscoring.make_packed_scorer(
             M, P, agg_patch=AGG, dtype=jnp.float32, interpret=True)
         stacked = group_member_variables(variables)
-        want = {k: np.asarray(score(stacked, jnp.asarray(vols),
-                                    jnp.asarray(g), None))
+        want = {k: np.asarray(jax.jit(score)(stacked, jnp.asarray(vols),
+                                             jnp.asarray(g), None))
                 for k, g in gts.items()}
     weights = group_member_state_dicts(
         [unet3d_params_to_torch(v) for v in variables])

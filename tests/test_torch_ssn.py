@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_unet3d import flax_init
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.inference import scoring as jscoring
 from values_tpu.inference.engine import SlidingWindowEngine as JaxEngine
 from values_tpu.models.ensemble_unet3d import group_member_variables
@@ -35,10 +37,8 @@ M, P, B, BP, AGG, N_PRED, RANK, C = 2, 16, 4, 8, 4, 2, 3, 2
 
 def _jax_members(f, n=M):
     model = JaxSsnUNet3D(num_classes=C, initial_filter_size=f, rank=RANK)
-    init = jax.jit(model.init)
-    return [jax.tree_util.tree_map(np.asarray,
-                                   init(k, jnp.zeros((1, P, P, P, 1))))
-            for k in jax.random.split(jax.random.PRNGKey(4), n)]
+    return [flax_init(model, 40 + m, jnp.zeros((1, P, P, P, 1)))
+            for m in range(n)]
 
 
 def _normals(key, n, b, dim, dtype, pad=None):
@@ -84,11 +84,14 @@ def test_ssn_unet3d_and_lowrank_mvn_match_flax_f64():
     with jax.enable_x64(True):
         model = JaxSsnUNet3D(num_classes=C, initial_filter_size=2, rank=RANK,
                              dtype=jnp.float64, param_dtype=jnp.float64)
-        dist = model.apply(jax.tree_util.tree_map(
-            lambda a: a.astype(np.float64), variables), jnp.asarray(x))
-        want = [np.asarray(t) for t in (dist.mean, dist.cov_diag,
-                                        dist.cov_factor,
-                                        dist.rsample(key, (3,)))]
+
+        def apply(v, xx, k):
+            dist = model.apply(v, xx)
+            return (dist.mean, dist.cov_diag, dist.cov_factor,
+                    dist.rsample(k, (3,)))
+        want = [np.asarray(t) for t in jax.jit(apply)(
+            jax.tree_util.tree_map(lambda a: a.astype(np.float64),
+                                   variables), jnp.asarray(x), key)]
         normals = _normals(key, 3, 2, C * P ** 3, jnp.float64)
     got = _port_ssn(variables)(torch.from_numpy(x))
     with pytest.MonkeyPatch.context() as mp:
@@ -179,8 +182,9 @@ def scorer_case():
         score, _ = jscoring.make_packed_ssn_scorer(
             C, M, P, n_pred=N_PRED, rank=RANK, agg_patch=AGG,
             dtype=jnp.float32, interpret=True)
-        want = np.asarray(score(group_member_variables(variables),
-                                jnp.asarray(vols), jnp.asarray(gt), rng))
+        want = np.asarray(jax.jit(score)(group_member_variables(variables),
+                                         jnp.asarray(vols), jnp.asarray(gt),
+                                         rng))
     weights = group_member_state_dicts(
         [unet3d_params_to_torch(v) for v in variables])
     return weights, vols, gt, rng, want

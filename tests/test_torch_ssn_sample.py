@@ -10,6 +10,7 @@ import math
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu_torch.models import ssn_unet3d as PS
 from values_tpu_torch.models.ssn_unet3d import LowRankMVN
 from values_tpu_torch.ops.kernels import ssn_sample

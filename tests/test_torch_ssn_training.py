@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.config import make_config as jax_make_config
 from values_tpu.models.ssn_unet3d import SsnUNet3D as JaxSsnUNet3D
 from values_tpu.ops import losses as JL
@@ -138,7 +139,7 @@ def test_loss_and_gradients_match_flax_float64(params, monkeypatch,
 
         jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
                                     params)
-        want_loss, want = jax.value_and_grad(jax_loss)(jp)
+        want_loss, want = jax.jit(jax.value_and_grad(jax_loss))(jp)
         normals = _normals(key, jnp.float64)
     monkeypatch.setattr(S, "draw_ssn_normals", _Normals([normals]))
     tp = tree_map(lambda a: torch.tensor(a, dtype=torch.float64)
@@ -322,8 +323,9 @@ def test_cli_pretrains_then_samples_and_serves(toy, tmp_path, monkeypatch):
     assert hparams["model"]["_target_"] == MODEL["_target_"]
     assert (hparams["pretrain_epochs"], hparams["n_aleatoric_samples"]) == (
         2, 2)
-    init = JaxSsnUNet3D(num_classes=2, initial_filter_size=2, rank=2).init(
-        jax.random.PRNGKey(0), jnp.zeros((1, P, P, P, 1)))
+    init = jax.eval_shape(JaxSsnUNet3D(num_classes=2, initial_filter_size=2,
+                                       rank=2).init,
+                          jax.random.PRNGKey(0), jnp.zeros((1, P, P, P, 1)))
     shapes = lambda t: jax.tree_util.tree_map(np.shape, t)  # noqa: E731
     assert shapes(payload["state_dict"]) == shapes(init)
     scores = run_score(score_cli([

@@ -19,21 +19,11 @@ import torch
 from tests.test_torch_training_2d import (CLASSES, H, W, batches,
                                           check_steps, config, jax_steps,
                                           jax_variables, port_steps)
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu_torch.models import ssn_unet3d as PS
 
 RANK = 3      # small_cfg's SSN_RANK
 SAMPLES = 2   # config()'s n_aleatoric_samples
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's small CPU steps: tier-1 runs
-    six workers on the host's cores, where torch's default of one
-    thread per core oversubscribes them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _normals(rng, exp):

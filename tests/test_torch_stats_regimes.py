@@ -2,14 +2,17 @@
 tiled and register kernels refuse (K2: more than 16 classes, or more than
 454 bytes of samples a voxel; K3: more than 8 classes). The plain
 versions against the JAX package's Pallas kernels in interpret mode at
-those shapes, the regime functions against the old refusal, and the CUDA
-kernels against their plain versions where a card is present."""
+the class counts those kernels are not held to elsewhere, and against
+float64 where only the card's regime differs; the regime functions
+against the old refusal, and the CUDA kernels against their plain
+versions where a card is present."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.ops.pallas import sampling as jsampling
 from values_tpu.ops.pallas.conv3d import pack_ndhwc, unpack_ndhwc
 from values_tpu.ops.pallas.entropy import fused_entropy_pallas
@@ -32,27 +35,53 @@ def _stack(s, c, seed):
     return p.astype(np.float32)
 
 
-@pytest.mark.parametrize("s,c", [(5, 24), (80, 2)])
+def _stats64(x, logits=False):
+    """K2's four statistics of an (S, C, N) stack (softmax probabilities,
+    or logits), spelled out in float64, with 0 log 0 = 0."""
+    def plogp(q):
+        return np.where(q > 0, q * np.log(np.where(q > 0, q, 1.0)), 0.0)
+    p = x.astype(np.float64)
+    if logits:
+        p = np.exp(p - p.max(axis=1, keepdims=True))
+        p /= p.sum(axis=1, keepdims=True)
+    mean = p.mean(axis=0)
+    pe = -plogp(mean).sum(axis=0)
+    ee = -plogp(p).sum(axis=1).mean(axis=0)
+    return {"mean_softmax": mean, "pred_entropy": pe,
+            "expected_entropy": ee, "mutual_information": pe - ee}
+
+
+def _pallas(x, logits=False):
+    x = jnp.asarray(x)
+    return fused_entropy_pallas(jax.nn.softmax(x, axis=1) if logits else x,
+                                tile_n=N2, interpret=True)
+
+
+# (5, 24): more classes than the tiled kernel takes, which the Pallas
+# kernel in interpret mode is held to; (80, 2): the scorer's two classes,
+# whose sample count moves only the card's choice of regime, held against
+# the statistics spelled out in float64 (tests/test_torch_entropy.py holds
+# two classes against the Pallas kernel).
+REFERENCES = {(5, 24): _pallas, (80, 2): _stats64}
+
+
+@pytest.mark.parametrize("s,c", list(REFERENCES))
 def test_k2_plain_matches_pallas_at_stream_shapes(s, c):
     """The probability form and the logits form (on the same stack's
-    logs) against ``fused_entropy_pallas`` in interpret mode, f32 atol
-    1e-6 (test_torch_entropy.py's tolerance: float32 sums of S*C terms
-    in another order)."""
+    logs) against the shape's reference, f32 atol 1e-6
+    (test_torch_entropy.py's tolerance: float32 sums of S*C terms in
+    another order)."""
     assert entropy.plan(s, c, torch.float32) == "stream"
+    reference = REFERENCES[s, c]
     stack = _stack(s, c, seed=s + c)
-    want = fused_entropy_pallas(jnp.asarray(stack), tile_n=N2,
-                                interpret=True)
-    got = entropy.fused_entropy(torch.from_numpy(stack))
-    for key in KEYS:
-        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
-                                   atol=1e-6, err_msg=key)
     logits = np.random.RandomState(c).randn(s, c, N2).astype(np.float32) * 3
-    want = fused_entropy_pallas(jax.nn.softmax(jnp.asarray(logits), axis=1),
-                                tile_n=N2, interpret=True)
-    got = entropy.fused_entropy(torch.from_numpy(logits), logits=True)
-    for key in KEYS:
-        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
-                                   atol=1e-6, err_msg=key)
+    for x, form in ((stack, False), (logits, True)):
+        want = reference(x, logits=form)
+        got = entropy.fused_entropy(torch.from_numpy(x), logits=form)
+        for key in KEYS:
+            np.testing.assert_allclose(got[key].numpy(),
+                                       np.asarray(want[key]), atol=1e-6,
+                                       err_msg=f"{key}, logits={form}")
 
 
 def test_k2_plan_streams_exactly_what_the_tile_refused():

@@ -28,6 +28,8 @@ import torch
 
 from tests.test_2d_path import H, NUM_CLASSES, W, _hrnet_hparams, make_gta_tree
 from tests.test_hrnet import small_cfg
+from test_torch_unet3d import flax_init
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.inference import test_2d as J
 from values_tpu.models.hrnet import HighResolutionNet as JaxHRNet
 from values_tpu.training.checkpoint import save_checkpoint
@@ -40,17 +42,20 @@ GOLDEN = __import__("pathlib").Path(__file__).parent / "golden" / \
 
 
 def _checkpoint(work, gta, name, **cfg_kw):
-    """A JAX-initialized HRNet saved by the JAX package (the golden test's
-    init for the plain model)."""
+    """An HRNet saved by the JAX package: the plain model with the golden
+    test's init (flax's own draw, the program tests/test_golden_2d.py
+    compiles), the others drawn by ``flax_init``, which compiles
+    nothing."""
     cfg = small_cfg(num_classes=NUM_CLASSES, **cfg_kw)
     hp = _hrnet_hparams(gta, work)
     hp["model"]["cfg"] = cfg
     hp["MODEL"] = cfg["MODEL"]
     model = JaxHRNet(cfg=cfg)
-    seed = {"plain": 0, "member": 1, "dropout": 2, "ssn": 3}[name]
-    v = jax.jit(lambda k: model.init({"params": k, "dropout": k},
-                                     jnp.zeros((1, H, W, 3))))(
-        jax.random.PRNGKey(seed))
+    x = jnp.zeros((1, H, W, 3))
+    if name == "plain":
+        v = jax.jit(model.init)(jax.random.PRNGKey(0), x)
+    else:
+        v = flax_init(model, {"member": 1, "dropout": 2, "ssn": 3}[name], x)
     path = work / f"{name}.ckpt"
     save_checkpoint(str(path), v, hp)
     return str(path)
@@ -264,20 +269,16 @@ def test_cli_float64_against_jax_float64(tree):
              map_atol=2.4e-7)
 
 
-def test_cli_reproduces_the_golden_2d_run(tmp_path):
-    """tests/test_golden_2d.py's run through the port's CLI (the JAX
-    checkpoint it writes, the same flags) reproduces
-    tests/golden/gta_2d.json within that test's tolerances."""
-    gta = make_gta_tree(tmp_path / "GTA")
-    hparams = _hrnet_hparams(gta, tmp_path)
-    model = JaxHRNet(cfg=small_cfg(num_classes=NUM_CLASSES))
-    variables = jax.jit(model.init)(jax.random.PRNGKey(0),
-                                    jnp.zeros((1, 32, 48, 3)))
-    save_checkpoint(str(tmp_path / "hrnet.ckpt"), variables, hparams)
-    P.main(["--checkpoint_paths", str(tmp_path / "hrnet.ckpt"),
-            "--test_split", "ood", "--n_pred", "2", "--n_reference_samples",
-            "3", "--device", "cpu"])
-    base = _result_dir(tmp_path / "results", "ood")
+def test_cli_reproduces_the_golden_2d_run(tree):
+    """tests/test_golden_2d.py's run through the port's CLI (the plain
+    checkpoint is the one it writes, on the same tree; the same flags)
+    reproduces tests/golden/gta_2d.json within that test's
+    tolerances."""
+    work, ckpts = tree
+    P.main(["--checkpoint_paths", ckpts["plain"], "--test_split", "ood",
+            "--n_pred", "2", "--n_reference_samples", "3", "--device", "cpu",
+            "--save_dir", str(work / "golden")])
+    base = _result_dir(work / "golden", "ood")
     metrics = json.loads((base / "metrics.json").read_text())
     image_id = [k for k in metrics if k != "mean"][0]
     pe = cv2.imread(str(base / "pred_entropy" / f"{image_id}.tif"),

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_unet3d import flax_init
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.config import compose
 from values_tpu.core import nifti as jax_nifti
 from values_tpu.data.toy_datamodule import ToyDataModule3D
@@ -478,12 +480,11 @@ def mode_runs(cli_runs):
         "_target_": "values_tpu.models.ssn_unet3d.SsnUNet3D",
         "num_classes": 2, "initial_filter_size": F, "rank": 3,
         "epsilon": 1e-5}}
-    init = jax.jit(JaxSsnUNet3D(num_classes=2, initial_filter_size=F,
-                                rank=3).init)
+    model = JaxSsnUNet3D(num_classes=2, initial_filter_size=F, rank=3)
     ssn = [str(root / f"ssn_{i}.ckpt") for i in range(2)]
-    for path, key in zip(ssn, jax.random.split(jax.random.PRNGKey(3))):
-        save_checkpoint(path, init(key, jnp.zeros((1, PATCH, PATCH, PATCH,
-                                                    1))), ssn_hp)
+    for i, path in enumerate(ssn):
+        save_checkpoint(path, flax_init(model, 3 + i, jnp.zeros(
+            (1, PATCH, PATCH, PATCH, 1))), ssn_hp)
     ckpts = {"tta": members,
              "n_pred": [_copy_checkpoint(members[0], root / "mcd.ckpt",
                                          drop_hp)],

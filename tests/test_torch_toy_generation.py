@@ -8,6 +8,7 @@ import random
 import numpy as np
 import pytest
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.core import nifti as jax_nifti
 from values_tpu.data import toy_generation as J
 from values_tpu_torch.data import toy_generation as T

@@ -10,6 +10,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu_torch.config import instantiate, make_config
 from values_tpu_torch.core import tracing
 from values_tpu_torch.inference import test_2d

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.ops.pallas.conv3d import (conv3d_banded_packed_ad,
                                           conv3d_banded_packed_ad_stats,
                                           pack_ndhwc, unpack_ndhwc)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.config import compose as jax_compose
 from values_tpu.config import make_config as jax_make_config
 from values_tpu.data.pipeline import NumpyBatchLoader as JaxLoader
@@ -83,8 +84,8 @@ def test_train_forward_matches_packed_train_forward(aleatoric):
     packed forward and flax's."""
     params = _init_params(aleatoric)
     x, _ = _batch(0)
-    want = packed_train_forward(jax.tree_util.tree_map(jnp.asarray, params),
-                                jnp.asarray(x), interpret=True)
+    want = jax.jit(lambda p, xx: packed_train_forward(p, xx, interpret=True))(
+        jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x))
     got = train_forward(_torch_tree(params), torch.tensor(x))
     if not aleatoric:
         got, want = (got,), (want,)
@@ -93,31 +94,64 @@ def test_train_forward_matches_packed_train_forward(aleatoric):
                                    atol=2e-5, rtol=0)
 
 
-@pytest.fixture
-def x64():
+@pytest.fixture(scope="module")
+def flax64():
+    """``flax64(aleatoric)``: the initial tree and batch 2, and the flax
+    UNet3D's float64 outputs, objective (Dice+CE, or the aleatoric one on
+    the JAX draw of its normals) and gradients there, from one jitted
+    program a head, run once for the forward and the gradient test."""
+    runs = {}
+
+    def run(aleatoric):
+        if aleatoric not in runs:
+            runs[aleatoric] = _flax64(aleatoric)
+        return runs[aleatoric]
+    return run
+
+
+def _flax64(aleatoric):
+    params = _init_params(aleatoric)
+    x, seg = _batch(2)
+    rng = jax.random.PRNGKey(5)
+    cf = lambda t: jnp.moveaxis(t, -1, 1)  # noqa: E731
     with jax.enable_x64(True):
-        yield
+        model = JaxUNet3D(num_classes=2, initial_filter_size=F,
+                          aleatoric_loss=aleatoric, dtype=jnp.float64,
+                          param_dtype=jnp.float64)
+        xj, tj = jnp.asarray(x, jnp.float64), jnp.asarray(seg)
+
+        def jax_loss(p):
+            out = model.apply({"params": p}, xj)
+            if aleatoric:
+                return JL.aleatoric_sampling_loss(
+                    cf(out[0]), cf(out[1]), tj, rng, n_samples=3), out
+            return JL.dice_ce_loss(cf(out), tj), out
+
+        jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
+                                    params)
+        (loss, out), grads = jax.jit(jax.value_and_grad(
+            jax_loss, has_aux=True))(jp)
+        eps = (np.asarray(jax.random.normal(rng, (3, B, 2, P, P, P),
+                                            jnp.float64))
+               if aleatoric else None)
+    return dict(params=params, x=x, seg=seg, eps=eps, loss=float(loss),
+                out=jax.tree_util.tree_map(np.asarray, out),
+                grads=jax.tree_util.tree_map(np.asarray, grads))
 
 
 @pytest.mark.parametrize("aleatoric", [False, True])
-def test_train_forward_matches_flax_float64(x64, aleatoric):
+def test_train_forward_matches_flax_float64(flax64, aleatoric):
     """f64 against flax UNet3D.apply: atol 1e-10 (PARITY.md's UNet3D
     bound)."""
-    params = _init_params(aleatoric)
-    x, _ = _batch(1)
-    model = JaxUNet3D(num_classes=2, initial_filter_size=F,
-                      aleatoric_loss=aleatoric, dtype=jnp.float64,
-                      param_dtype=jnp.float64)
-    jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
-                                params)
-    want = model.apply({"params": jp}, jnp.asarray(x, jnp.float64))
-    got = train_forward(_torch_tree(params, torch.float64),
-                        torch.tensor(x, dtype=torch.float64))
+    run = flax64(aleatoric)
+    got = train_forward(_torch_tree(run["params"], torch.float64),
+                        torch.tensor(run["x"], dtype=torch.float64))
+    want = run["out"]
     if not aleatoric:
         got, want = (got,), (want,)
     for g, w in zip(got, want):
-        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
-                                   atol=1e-10, rtol=0)
+        np.testing.assert_allclose(g.detach().numpy(), w, atol=1e-10,
+                                   rtol=0)
 
 
 def _leaves(tree, prefix=""):
@@ -129,45 +163,26 @@ def _leaves(tree, prefix=""):
 
 
 @pytest.mark.parametrize("aleatoric", [False, True])
-def test_parameter_gradients_match_flax_float64(x64, aleatoric):
+def test_parameter_gradients_match_flax_float64(flax64, aleatoric):
     """Dice+CE (or the aleatoric objective, on the JAX draw of its
     normals) and its gradient on every leaf against jax.grad of the flax
     model, f64: rtol 1e-8, atol 1e-10 of the largest gradient (the
     biases of convs feeding an instance norm have a true gradient of 0,
     and both sides give roundoff there)."""
-    params = _init_params(aleatoric)
-    x, seg = _batch(2)
-    model = JaxUNet3D(num_classes=2, initial_filter_size=F,
-                      aleatoric_loss=aleatoric, dtype=jnp.float64,
-                      param_dtype=jnp.float64)
-    rng = jax.random.PRNGKey(5)
-    xj, tj = jnp.asarray(x, jnp.float64), jnp.asarray(seg)
-    cf = lambda t: jnp.moveaxis(t, -1, 1)  # noqa: E731
-
-    def jax_loss(p):
-        out = model.apply({"params": p}, xj)
-        if aleatoric:
-            return JL.aleatoric_sampling_loss(cf(out[0]), cf(out[1]), tj,
-                                              rng, n_samples=3)
-        return JL.dice_ce_loss(cf(out), tj)
-
-    jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
-                                params)
-    want_loss, want = jax.value_and_grad(jax_loss)(jp)
+    run = flax64(aleatoric)
     tp = tree_map(lambda t: t.requires_grad_(True),
-                  _torch_tree(params, torch.float64))
-    out = train_forward(tp, torch.tensor(x, dtype=torch.float64))
-    tt = torch.tensor(seg)
+                  _torch_tree(run["params"], torch.float64))
+    out = train_forward(tp, torch.tensor(run["x"], dtype=torch.float64))
+    tt = torch.tensor(run["seg"])
     if aleatoric:
-        eps = jax.random.normal(rng, (3, B, 2, P, P, P), jnp.float64)
         loss = L.aleatoric_sampling_loss(
             out[0].movedim(-1, 1), out[1].movedim(-1, 1), tt,
-            eps=torch.tensor(np.asarray(eps)))
+            eps=torch.tensor(run["eps"]))
     else:
         loss = L.dice_ce_loss(out.movedim(-1, 1), tt)
     loss.backward()
-    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-12)
-    want = dict(_leaves(jax.tree_util.tree_map(np.asarray, want)))
+    np.testing.assert_allclose(loss.item(), run["loss"], rtol=1e-12)
+    want = dict(_leaves(run["grads"]))
     got = dict(_leaves(tree_map(lambda t: t.grad.numpy(), tp)))
     assert sorted(got) == sorted(want)
     scale = max(float(np.abs(w).max()) for w in want.values())
@@ -322,8 +337,8 @@ def test_training_cli_end_to_end(toy, tmp_path):
     assert payload["global_step"] == 4 and payload["epoch"] == 1
     assert "opt_state" not in payload
     assert payload[TORCH_OPTIMIZER_KEY]["state"]
-    init = JaxUNet3D(num_classes=2, initial_filter_size=2).init(
-        jax.random.PRNGKey(0), jnp.zeros((1, P, P, P, 1)))
+    init = jax.eval_shape(JaxUNet3D(num_classes=2, initial_filter_size=2).init,
+                          jax.random.PRNGKey(0), jnp.zeros((1, P, P, P, 1)))
     shapes = lambda t: jax.tree_util.tree_map(np.shape, t)  # noqa: E731
     assert shapes(payload["state_dict"]) == shapes(init)
     args = ["--checkpoint_paths", ckpt, "-i", str(toy), "--test_split",

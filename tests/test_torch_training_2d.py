@@ -1,7 +1,7 @@
 """2D training in the port (values_tpu_torch.training.experiment, the
 HRNet's training mode, optim, torch_import) against the JAX package's
 ``Experiment`` step by step (never its ``fit``), on
-tests/test_hrnet.py::small_cfg with 5 classes, JAX-initialised weights
+tests/test_hrnet.py::small_cfg with 5 classes, flax-initialised weights
 carried across, the same batches (a 255 region in every target) and, for
 DROPOUT_FINAL, the JAX step's own keep masks (flax's ``nn.Dropout``
 recorded, replayed through ``values_tpu_torch.models.hrnet.dropout_final``).
@@ -39,6 +39,8 @@ import pytest
 import torch
 
 from tests.test_hrnet import small_cfg
+from test_torch_unet3d import flax_init
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.config import make_config as jax_make_config
 from values_tpu.models.hrnet import HighResolutionNet as JaxHRNet
 from values_tpu.models import torch_import as JI
@@ -57,17 +59,6 @@ CLASSES = 5
 # rounding noise in both packages (which RMSprop scales up to ~lr |g| /
 # eps); held below 1e-3, not to each other
 ZERO_GRAD = {("last_layer_0", "bias"), ("cov_factor_conv_0", "bias")}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's small CPU steps: tier-1 runs
-    six workers on the host's cores, where torch's default of one
-    thread per core oversubscribes them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def config(optimizer="sgd", precision="32", **cfg_kw):
@@ -99,10 +90,7 @@ def batches(n, seed=0):
 
 def jax_variables(seed=0, **cfg_kw):
     model = JaxHRNet(cfg=small_cfg(num_classes=CLASSES, **cfg_kw))
-    v = jax.jit(lambda k: model.init({"params": k, "dropout": k},
-                                     jnp.zeros((1, H, W, 3))))(
-        jax.random.PRNGKey(seed))
-    return jax.tree_util.tree_map(np.asarray, v)
+    return flax_init(model, seed, jnp.zeros((1, H, W, 3)))
 
 
 def numpy_tree(tree):

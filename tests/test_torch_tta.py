@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_unet3d import flax_init
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.inference import scoring as jscoring
 from values_tpu.inference.engine import SlidingWindowEngine as JaxEngine
 from values_tpu.models.ensemble_unet3d import group_member_variables
@@ -31,10 +33,8 @@ M, P, B, BP, AGG = 2, 16, 4, 8, 4
 
 def _members(f, n=M, seed=8):
     model = JaxUNet3D(num_classes=2, initial_filter_size=f)
-    init = jax.jit(model.init)
-    return [jax.tree_util.tree_map(np.asarray,
-                                   init(k, jnp.zeros((1, P, P, P, 1))))
-            for k in jax.random.split(jax.random.PRNGKey(seed), n)]
+    return [flax_init(model, 10 * seed + m, jnp.zeros((1, P, P, P, 1)))
+            for m in range(n)]
 
 
 class _Noise:

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_unet3d import flax_init
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 import values_tpu.models.ensemble_unet3d_pallas as jpallas
 from values_tpu.inference import scoring as jscoring
 from values_tpu.models.ensemble_unet3d import group_member_variables
@@ -35,10 +37,8 @@ def case():
     packed shapes, computed once (interpret mode; VALUES_TPU_AGG_LINEAR=0
     set before tracing, fault R1)."""
     model = JaxUNet3D(num_classes=2, initial_filter_size=4)
-    init = jax.jit(model.init)
-    variables = [jax.tree_util.tree_map(np.asarray,
-                                        init(k, jnp.zeros((1, P, P, P, 1))))
-                 for k in jax.random.split(jax.random.PRNGKey(8), M)]
+    variables = [flax_init(model, 80 + m, jnp.zeros((1, P, P, P, 1)))
+                 for m in range(M)]
     rs = np.random.RandomState(5)
     vols = rs.rand(B, P, P, P, 1).astype(np.float32)
     gt = (rs.rand(B, 3, P, P, P) > 0.7).astype(np.int32)

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.models.ensemble_unet3d import group_member_variables
 from values_tpu.models.unet3d import UNet3D as JaxUNet3D
 from values_tpu_torch.models.torch_import import (group_member_state_dicts,
@@ -19,15 +20,37 @@ VARIANTS = {"plain": {}, "no_instancenorm": {"do_instancenorm": False},
             "aleatoric": {"aleatoric_loss": True}}
 
 
+def flax_init(model, seed, *inputs, dtype=np.float32):
+    """Variables of ``model.init(key, *inputs)``, its tree and shapes, drawn
+    in numpy as flax's default initializers draw them: every kernel normal
+    with std 1/sqrt(fan in), biases and BatchNorm means 0, norm scales and
+    BatchNorm variances 1. ``jax.eval_shape`` traces ``init`` and compiles
+    nothing, where a jitted init of one of these models is an XLA program
+    of 5-25 s on the CPU; the port's tests compare the two packages on
+    the same weights, so what draws them is theirs to choose. The golden
+    runs, which need flax's own draw, keep ``model.init``."""
+    with jax.enable_x64(np.dtype(dtype) == np.float64):
+        shapes = jax.eval_shape(lambda: model.init(
+            {"params": jax.random.PRNGKey(0),
+             "dropout": jax.random.PRNGKey(1)}, *inputs))
+    rs = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        name = path[-1].key
+        if name == "kernel":
+            fan_in = int(np.prod(leaf.shape[:-1]))
+            return (rs.randn(*leaf.shape) / np.sqrt(fan_in)).astype(dtype)
+        return np.full(leaf.shape, 1.0 if name in ("scale", "var") else 0.0,
+                       dtype)
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
 def _jax_variables(kwargs, seed=0):
     """flax UNet3D variables in float64, as nested dicts of numpy."""
-    with jax.enable_x64(True):
-        model = JaxUNet3D(num_classes=2, initial_filter_size=F,
-                          dtype=jnp.float64, param_dtype=jnp.float64,
-                          **kwargs)
-        variables = jax.jit(model.init)(
-            jax.random.PRNGKey(seed), jnp.zeros((1, P, P, P, 1), jnp.float64))
-    return model, jax.tree_util.tree_map(np.asarray, variables)
+    model = JaxUNet3D(num_classes=2, initial_filter_size=F,
+                      dtype=jnp.float64, param_dtype=jnp.float64, **kwargs)
+    return model, flax_init(model, seed, jnp.zeros((1, P, P, P, 1)),
+                            dtype=np.float64)
 
 
 def _port_model(kwargs, variables):

@@ -27,6 +27,7 @@ matplotlib.use("Agg")
 import matplotlib.pyplot as plt  # noqa: E402
 from matplotlib.container import BarContainer  # noqa: E402
 
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.config import compose as jax_compose  # noqa: E402
 from values_tpu.evaluation.visualization import (  # noqa: E402
     ds_task_barplots as J_BP, ds_task_table as J_TT)

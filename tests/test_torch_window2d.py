@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from tests.test_hrnet import small_cfg
+from test_torch_unet3d import flax_init
+from torch_parallel_cases import one_torch_thread  # noqa: F401
 from values_tpu.inference import window2d as JW
 from values_tpu.models.hrnet import HighResolutionNet as JaxHRNet
 from values_tpu_torch.inference import window2d as PW
@@ -123,8 +125,7 @@ def test_pad_matches_numpy(mode):
 def small_hrnet():
     cfg = small_cfg(num_classes=5)
     model = JaxHRNet(cfg=cfg)
-    v = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
-    v = jax.tree_util.tree_map(np.asarray, v)
+    v = flax_init(model, 0, jnp.zeros((1, 32, 32, 3)))
     rs = np.random.RandomState(5)
     v["batch_stats"] = {
         k: {"mean": (rs.randn(*s["mean"].shape) * 0.1).astype(np.float32),

@@ -1,17 +1,21 @@
 """The cases of tests/test_torch_parallel.py, run twice: in every rank of
 a spawned gloo world (``run_group``, through the port's own
-``values_tpu_torch.parallel.launch.spawn``) and, for the single-rank
-references, in the test process. The module imports no JAX, so a rank
-starts with torch and the port alone; each rank runs one intra-op
-thread."""
+``values_tpu_torch.parallel.launch.spawn``, bounded by ``spawn_within``)
+and, for the single-rank references, in the test process. The module
+imports no JAX, so a rank starts with torch and the port alone; each rank
+runs one intra-op thread, and so does every port test module that imports
+``one_torch_thread``."""
 from __future__ import annotations
 
 import contextlib
+import multiprocessing
 import os
 import pickle
+import threading
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from values_tpu_torch.config import compose, make_config
@@ -22,6 +26,7 @@ from values_tpu_torch.models import ensemble_unet3d as E
 from values_tpu_torch.models.ensemble_unet3d import (cast_weights,
                                                      group_member_variables)
 from values_tpu_torch.models.unet3d import UNet3D
+from values_tpu_torch.parallel import launch
 from values_tpu_torch.parallel.mesh import (initialize_distributed,
                                             make_mesh,
                                             make_parallel_pass_predict,
@@ -35,6 +40,50 @@ P, F = 16, 2
 B3 = 4                       # the 3D steps' global batch
 B2, H2, W2, C2 = 4, 64, 64, 5  # the 2D step's global batch, 5 classes
 SCORE_SEED = 21
+WORLD_DEADLINE_S = 300    # a spawned world's limit; its cases take ~30-60 s
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for a port test module's CPU work, imported by
+    every ``tests/test_torch_*.py``. Tier-1 runs six xdist workers on the
+    host's cores; at torch's default of a thread per core, each op's
+    OpenMP barrier waits on threads the other workers have descheduled,
+    and a test of many small ops runs tens of times slower (a small
+    HRNet's sliding-window passes in a six-worker run: 916 s, against
+    13 s on one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def spawn_within(fn, args, nprocs: int, seconds: float = WORLD_DEADLINE_S):
+    """``launch.spawn(fn, args, nprocs)`` with a deadline: past
+    ``seconds``, every rank it started that still runs is killed, so
+    ``spawn`` raises for the rank a signal ended, and this raises
+    TimeoutError. A stuck rendezvous fails its test instead of holding
+    the tier-1 run to its clock."""
+    before = set(multiprocessing.active_children())
+    fired = threading.Event()
+
+    def end_ranks():
+        fired.set()
+        for proc in set(multiprocessing.active_children()) - before:
+            proc.kill()
+
+    timer = threading.Timer(seconds, end_ranks)
+    timer.daemon = True
+    timer.start()
+    try:
+        return launch.spawn(fn, args, nprocs)
+    except torch.multiprocessing.ProcessExitedException as err:
+        if fired.is_set():
+            raise TimeoutError(f"a world of {nprocs} ranks ran past its "
+                               f"{seconds} s deadline") from err
+        raise
+    finally:
+        timer.cancel()
 
 
 # -- data-parallel training steps ---------------------------------------------
