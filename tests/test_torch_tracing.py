@@ -36,9 +36,9 @@ TEST2D = {"test2d.batch": None, "test2d.to_device": "test2d.batch",
           "test2d.save_uncertainty": "test2d.process_output",
           "test2d.write": ("test2d.save_prediction",
                            "test2d.save_uncertainty")}
-# the blocking reads of one image that the code makes: the GED's ignore
-# check, the two metrics, the colour map and the three uncertainty maps
-READBACKS_PER_IMAGE = 1 + 2 + 1 + 3
+# the blocking reads of one batch that the code makes: one, of the colour
+# maps, the uncertainty maps and the metrics packed together
+READBACKS_PER_BATCH = 1
 
 
 @pytest.fixture(autouse=True)
@@ -215,22 +215,28 @@ def test_tester2d_spans_and_readbacks(tmp_path):
     assert {r["name"] for r in recs} == set(TEST2D)
     _check_tree(recs, TEST2D)
     summary = tracing.summary()
+    # the metrics and the maps once a batch on the device; the writes
+    # image by image on the host
     per_batch = {"test2d.batch": 1, "test2d.to_device": S,
                  "test2d.forward": S, "test2d.process_output": 1,
-                 "test2d.metrics": B, "test2d.uncertainty": B,
+                 "test2d.metrics": 1, "test2d.uncertainty": 1,
                  "test2d.save_prediction": B, "test2d.save_uncertainty": B,
                  "test2d.write": 2 * B}
     assert {n: s["calls"] for n, s in summary.items()} == {
         n: 2 * k for n, k in per_batch.items()}
     totals = tracing.totals()
     assert totals["images"] == 2 * B
-    assert totals["readbacks"] == READBACKS_PER_IMAGE * totals["images"]
+    assert totals["readbacks"] == READBACKS_PER_BATCH * 2
     assert totals["h2d_bytes"] == 2 * (S * B * H * W * 3 * 4
                                        + B * H * W * 8)
-    # the colour map (S + 1 label maps of RGB bytes), the three float32
-    # maps, the GED's bool and the two float64 metrics
-    assert totals["d2h_bytes"] == 2 * B * (
-        (S + 1) * H * W * 3 + 3 * H * W * 4 + 1 + 2 * 8)
+    # one packed buffer a batch: the colour maps (S + 1 label maps of RGB
+    # bytes an image), the three float32 maps and the two float64 metrics
+    # of each image, each part at an offset aligned to PACK_ALIGN
+    packed = 0
+    for part in (B * (S + 1) * H * W * 3, 3 * B * H * W * 4, B * 2 * 8):
+        packed = (-(-packed // tracing.PACK_ALIGN) * tracing.PACK_ALIGN
+                  + part)
+    assert totals["d2h_bytes"] == 2 * packed
     assert set(tester.results_dict) == {f"{k}_{i}" for k in range(2)
                                         for i in range(B)} | {"mean"}
     # each span is an annotation of the trace, nested in its root's

@@ -3,12 +3,14 @@
 The port's only tracing module. ``span(name)`` marks one layer of a
 step: the scorer's cast, forward, C2 and C3, the training step's forward,
 backward and optimizer, the 2D tester's copies, forwards, SSN sampling,
-per-image metrics and writes. ``count(name, n)`` counts the bytes copied
-each way (``h2d_bytes``, ``d2h_bytes``), the blocking device-to-host
-reads (``readbacks``) and the work done (``images``, ``ssn_samples``) at
-the sites that do them; :func:`to_device`, :func:`to_host` and
-:func:`item` copy or read and count together. A site counts on every
-device, so a CPU run counts what the card would copy and read.
+batch-wide metrics and maps, and writes. ``count(name, n)`` counts the
+bytes copied each way (``h2d_bytes``, ``d2h_bytes``), the blocking
+device-to-host reads (``readbacks``) and the work done (``images``,
+``ssn_samples``) at the sites that do them; :func:`to_device`,
+:func:`to_host`, :func:`to_host_packed` (several tensors in one read,
+through pinned memory) and :func:`item` copy or read and count together.
+A site counts on every device, so a CPU run counts what the card would
+copy and read.
 
 Spans and counters record only while a ``torch.profiler`` collects.
 Outside one, ``span`` is one flag check that returns a shared null
@@ -169,6 +171,43 @@ def item(t: torch.Tensor):
         count("readbacks")
         count("d2h_bytes", t.element_size())
     return t.item()
+
+
+PACK_ALIGN = 64  # bytes; every part of a packed read starts on a multiple
+
+
+def to_host_packed(parts: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The tensors ``parts`` (one device) read back in one blocking copy:
+    packed into one byte buffer on their device, each at an offset aligned
+    to ``PACK_ALIGN``, copied asynchronously into a new host buffer
+    (from torch's pinned allocator on CUDA), then synchronized on that
+    copy. Returns contiguous host views of the buffer, one a part, in the
+    parts' shapes and types. One ``readbacks`` of the buffer's
+    ``d2h_bytes``, padding included.
+
+    The host buffer is new on every call, so views that a caller keeps
+    are never overwritten by a later read."""
+    offsets, total = [], 0
+    for t in parts:
+        total = -(-total // PACK_ALIGN) * PACK_ALIGN
+        offsets.append(total)
+        total += _nbytes(t)
+    device = parts[0].device
+    packed = torch.empty(total, dtype=torch.uint8, device=device)
+    for t, at in zip(parts, offsets):
+        packed[at:at + _nbytes(t)].view(t.dtype).view(t.shape).copy_(t)
+    if enabled():
+        count("readbacks")
+        count("d2h_bytes", total)
+    host = torch.empty(total, dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    host.copy_(packed, non_blocking=True)
+    if device.type == "cuda":
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+        done.synchronize()
+    return [host[at:at + _nbytes(t)].view(t.dtype).view(t.shape)
+            for t, at in zip(parts, offsets)]
 
 
 def records() -> List[Dict]:

@@ -26,13 +26,18 @@ and writes the same ``<save_dir>/<exp_name>/test_results/<version>/
 - one ``torch.Generator`` on the device, seeded with the checkpoint's
   seed, draws every dropout mask and SSN normal (the JAX tester's
   ``self.rng``; the streams differ, ROADMAP.md R2);
-- per image, on the device: a zero "extra class" channel so that the
-  ignore index lies outside the softmax classes, the mean Dice against
-  the switched reference masks, GED (``ged_only``), and PE/EE/MI, or
-  1 - MSR for a single prediction (:186-248);
-- only the written maps and the metrics are copied back: colour PNGs (the
-  mean and each prediction, ignore pixels black), float32 TIFs of each
-  uncertainty map, ``metrics.json`` per image and their mean.
+- for all images of a batch at once, on the device: the label maps of
+  the mean and of each prediction, with the ignored reference pixels
+  moved to the class count (outside the softmax classes; the JAX tester
+  appends a zero "extra class" channel instead); from those labels the
+  mean Dice against the switched reference masks and GED
+  (``ged_only``); PE/EE/MI, or 1 - MSR for a single prediction
+  (:186-248); the colour maps;
+- only the written maps and the metrics are copied back, in one blocking
+  read a batch through pinned memory: colour PNGs (the mean and each
+  prediction, ignore pixels black), float32 TIFs of each uncertainty
+  map, ``metrics.json`` per image and their mean; the host then writes
+  each image's files in turn.
 
 ``--device`` defaults to ``cuda``. The model runs in ``--dtype``
 (bfloat16: bf16 compute, float32 softmax and statistics); an SSN refuses
@@ -326,6 +331,11 @@ class Tester2D:
     def calculate_test_metrics(mean_softmax: torch.Tensor,
                                ground_truth: torch.Tensor
                                ) -> Dict[str, torch.Tensor]:
+        """One image's mean Dice over its raters, in the JAX tester's
+        extra-class form: ``mean_softmax`` (C + 1, H, W) with a zero last
+        channel, ``ground_truth`` (R, H, W) with C on the ignored pixels.
+        :meth:`process_output` takes it for a whole batch from labels
+        (``ops/metrics.py::label_test_metrics``)."""
         ignore = mean_softmax.shape[0] - 1
         dices = [ops_metrics.dice_score(mean_softmax[None], rater[None],
                                         ignore_index=ignore)
@@ -333,55 +343,58 @@ class Tester2D:
         return {"dice": torch.stack(dices).mean()}
 
     def process_output(self, all_preds: Dict, is_ssn: bool) -> None:
+        """A batch's metrics and maps from its (S, B, C, H, W) softmax
+        stack (any strides): taken for all B images at once on the device,
+        read back in one copy, then each image's ``results_dict`` entry and
+        files on the host, in the image's turn."""
         softmax = all_preds["softmax_pred"]
         s, b, c, h, w = softmax.shape
         tracing.count("images", b)
-        # extra channel so that the ignore index lies outside the classes
-        softmax = torch.cat([softmax, softmax.new_zeros((s, b, 1, h, w))],
-                            dim=2)
         gt = tracing.to_device(torch.from_numpy(all_preds["gt"]),
-                               self.device)
+                               self.device).long()
         if gt.ndim == 3:  # a single reference mask -> a rater axis
             gt = gt[:, None]
-        ignore_index_map = gt == self.ignore_index
-        gt = torch.where(ignore_index_map, torch.full_like(gt, c), gt)
-
-        for image_idx in range(b):
-            image_preds = softmax[:, image_idx]  # (S, C+1, H, W)
-            image_id = all_preds["image_id"][image_idx]
-            with tracing.span("test2d.metrics"):
-                mean_softmax = torch.mean(image_preds, dim=0)
-                metrics = self.calculate_test_metrics(mean_softmax,
-                                                      gt[image_idx])
-                metrics.update(ops_metrics.generalized_energy_distance(
-                    image_preds, gt[image_idx], ignore_index=c,
-                    ged_only=True))
-                self.results_dict[image_id] = {
-                    "dataset": all_preds["dataset"][image_idx],
-                    "metrics": {k: tracing.item(v)
-                                for k, v in metrics.items()}}
-            with tracing.span("test2d.uncertainty"):
-                if s > 1:
-                    unc = ops_uncertainty.uncertainty_measures(image_preds,
-                                                               ssn=is_ssn)
-                else:
-                    unc = ops_uncertainty.one_minus_msr(image_preds[0])
-            self.save_prediction(image_id, image_preds, mean_softmax,
-                                 ignore_index_map[image_idx][0])
-            self.save_uncertainty(image_id, unc)
+        ignore_map = gt == self.ignore_index
+        # the ignored pixels as class c, which no argmax over c classes gives
+        gt = gt.masked_fill(ignore_map, c)
+        with tracing.span("test2d.metrics"):
+            samples = torch.argmax(softmax, dim=2)  # (S, B, H, W)
+            # (K, B, H, W): the mean's and each prediction's, or the one's
+            labels = (torch.cat([torch.argmax(torch.mean(softmax, dim=0),
+                                              dim=1)[None], samples])
+                      if s > 1 else samples)
+            metrics = ops_metrics.label_test_metrics(
+                labels[0].flatten(1), samples.transpose(0, 1).flatten(2),
+                gt.flatten(2), ignore_index=c)
+            # rater 0's ignored pixels unlabeled; (B, K, H, W, 3) RGB
+            colors = self._colors[labels.masked_fill(
+                ignore_map[:, 0], cs_labels.name2trainId["unlabeled"]
+            ).transpose(0, 1)]
+        with tracing.span("test2d.uncertainty"):
+            stack = softmax.transpose(1, 2)  # (S, C, B, H, W)
+            if s > 1:
+                unc = ops_uncertainty.uncertainty_measures(stack, ssn=is_ssn)
+            else:
+                unc = ops_uncertainty.one_minus_msr(stack[0])
+            maps = torch.stack([v.to(torch.float32) for v in unc.values()])
+        colors, maps, metrics = tracing.to_host_packed(
+            [colors, maps, torch.stack(list(metrics.values()), dim=1)])
+        colors, maps = colors.numpy(), maps.numpy()
+        for image_idx, image_id in enumerate(all_preds["image_id"]):
+            self.results_dict[image_id] = {
+                "dataset": all_preds["dataset"][image_idx],
+                "metrics": dict(zip(("dice", "ged"),
+                                    metrics[image_idx].tolist()))}
+            self.save_prediction(image_id, colors[image_idx])
+            self.save_uncertainty(image_id,
+                                  dict(zip(unc, maps[:, image_idx])))
 
     # ------------------------------------------------------------------
-    def save_prediction(self, image_id: str, image_preds: torch.Tensor,
-                        mean_pred: torch.Tensor,
-                        ignore_index_map: torch.Tensor) -> None:
+    def save_prediction(self, image_id: str, colors: np.ndarray) -> None:
+        """One image's (K, H, W, 3) RGB label maps, host arrays: the
+        mean's and each prediction's, or the one prediction's."""
         with tracing.span("test2d.save_prediction"):
-            multiple = image_preds.shape[0] > 1
-            stack = (torch.cat([mean_pred[None], image_preds]) if multiple
-                     else image_preds)
-            labels = torch.argmax(stack, dim=1)
-            labels[:, ignore_index_map] = cs_labels.name2trainId["unlabeled"]
-            # (K, H, W, 3) RGB
-            colors = tracing.to_host(self._colors[labels]).numpy()
+            multiple = colors.shape[0] > 1
             with tracing.span("test2d.write"):
                 for output_idx, color in enumerate(colors):
                     idx = output_idx if multiple else output_idx + 1
@@ -391,12 +404,11 @@ class Tester2D:
                                                f"{img_name}.png"), color)
 
     def save_uncertainty(self, image_id: str,
-                         uncertainty_dict: Dict[str, torch.Tensor]) -> None:
+                         uncertainty_dict: Dict[str, np.ndarray]) -> None:
+        """One image's float32 (H, W) uncertainty maps, host arrays."""
         with tracing.span("test2d.save_uncertainty"):
-            maps = {k: tracing.to_host(v.to(torch.float32)).numpy()
-                    for k, v in uncertainty_dict.items()}
             with tracing.span("test2d.write"):
-                for unc_type, unc_map in maps.items():
+                for unc_type, unc_map in uncertainty_dict.items():
                     unc_dir = os.path.join(self.save_dir, unc_type)
                     os.makedirs(unc_dir, exist_ok=True)
                     write_tiff_float32(

@@ -7,7 +7,8 @@ test_3D.py:250-320): one-hot both label maps, delete the ``ignore_index``
 column, then ``2 tp / (2 tp + fp + fn)`` over everything, 0 where the
 denominator is 0. :func:`generalized_energy_distance` and
 :func:`per_rater_test_metrics` are the sliding-window CLI's per-volume
-metrics.
+metrics; :func:`label_test_metrics` is the 2D tester's per-image Dice and
+GED, a batch at a time, from label maps.
 """
 from __future__ import annotations
 
@@ -109,6 +110,44 @@ def _pooled_dice(a, b, ignore_index):
     """One micro Dice over all ordered pairs of rows of a and b."""
     tp, fp, fn = _pairwise_stats(a, b, ignore_index).sum(dim=(0, 1))
     return dice_from_stats(tp, fp, fn)
+
+
+def pooled_dice(a: torch.Tensor, b: torch.Tensor,
+                ignore_index: Optional[int] = None) -> torch.Tensor:
+    """Per item, one micro Dice over every ordered pair of rows of label
+    stacks a (B, N, V) and b (B, M, V): (B,) float64, item i's the
+    ``_pooled_dice`` of ``a[i]`` and ``b[i]``. All N*M pairs are compared
+    at once: sized for 2D label maps, where ``_pooled_dice`` takes a
+    volume's rows one at a time."""
+    return dice_from_stats(*dice_stats(a[:, :, None], b[:, None],
+                                       ignore_index, dim=(1, 2, 3)))
+
+
+def label_test_metrics(mean_labels: torch.Tensor,
+                       sample_labels: torch.Tensor, gt: torch.Tensor,
+                       ignore_index: int) -> Dict[str, torch.Tensor]:
+    """The 2D tester's metrics of each item of a batch, from label maps:
+    ``mean_labels`` (B, V), the argmax of the mean softmax;
+    ``sample_labels`` (B, S, V), each prediction's; ``gt`` (B, R, V), the
+    raters' maps with ``ignore_index`` (the class count, which no argmax
+    gives) on the ignored pixels. Returns (B,) float64 from integer counts:
+
+    - ``dice``: the micro Dice of the mean's labels against each rater,
+      ``ignore_index`` deleted, averaged over the raters;
+    - ``ged``: :func:`generalized_energy_distance` of the predictions and
+      the raters (``ged_only``).
+    """
+    dice = dice_from_stats(*dice_stats(mean_labels[:, None], gt,
+                                       ignore_index, dim=(2,)))
+    dist_gt_pred = 1.0 - pooled_dice(sample_labels, gt, ignore_index)
+    dist_pred_pred = 1.0 - pooled_dice(
+        sample_labels, sample_labels,
+        ignore_index if ignore_index == 0 else None)
+    # generalized_energy_distance deletes ignore_index from d(gt, gt) only
+    # where it occurs; where it does not, deleting it changes no count
+    dist_gt_gt = 1.0 - pooled_dice(gt, gt, ignore_index)
+    return {"dice": dice.mean(dim=1),
+            "ged": 2.0 * dist_gt_pred - dist_pred_pred - dist_gt_gt}
 
 
 def generalized_energy_distance(pred_softmax: torch.Tensor,

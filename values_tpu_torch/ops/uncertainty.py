@@ -25,7 +25,7 @@ import torch
 
 def _guarded_plogp(p: torch.Tensor) -> torch.Tensor:
     val = p * torch.log(p)
-    return torch.where(torch.isnan(val), torch.zeros_like(val), val)
+    return torch.where(torch.isnan(val), val.new_zeros(()), val)
 
 
 def entropy(p: torch.Tensor, class_axis: int = 0) -> torch.Tensor:
